@@ -1,0 +1,229 @@
+// Owner-expansion kernels for binning, written for Hopper (sm_90a).
+//
+// expand_scan replaces gsplat_tpu/raster/scan_kernel.py::_expand_kernel
+// (wrapper expand_scan). It is one pass over the K slots computing three
+// associative scans: the latest nonzero mark ("pack"), the running max of
+// base_in floored at 0 ("base"), and the 1-based running count of nonzero
+// marks ("rank"). The TPU kernel carried its running values across a
+// sequential grid in SMEM; blocks on the card run in no order, so the scan
+// is two launches: a reduction of each 4096-slot tile to one aggregate,
+// then a scan in which every block first folds the aggregates of the tiles
+// before it and then scans its own tile. Bound: bytes. Each slot reads two
+// int32 and writes three (20 B/slot), and the tile loads and stores are
+// warp-contiguous (lane l touches slot base + 32 i + l).
+//
+// merge_expand replaces scan_kernel.py::_merge_kernel (wrapper
+// merge_expand). Slot d's owner is the last g with starts[g] <= d, starts
+// ascending. The TPU kernel resolved it with a byte-split one-hot matmul
+// over a host-searched window of candidates; here each thread runs an
+// upper-bound binary search over starts (P <= a few million ints, which
+// stay in the 50 MB L2 after the first blocks touch them). Bound: bytes,
+// 12 B written per slot plus starts and pack read once.
+//
+// Plain C interface: pointers and the stream come from the binding; each
+// launcher returns cudaGetLastError() so a refused launch is reported.
+
+#include <cuda_runtime.h>
+
+namespace {
+
+constexpr int kScanThreads = 256;
+constexpr int kScanItems = 16;
+constexpr int kScanWarps = kScanThreads / 32;
+constexpr int kScanTile = kScanThreads * kScanItems;  // slots per block
+constexpr unsigned kFull = 0xffffffffu;
+
+struct Owner {
+  int pack;  // latest nonzero mark
+  int base;  // running max of base_in (identity 0: the TPU carry starts at 0)
+  int rank;  // running count of nonzero marks
+};
+
+__device__ __forceinline__ Owner identity() { return Owner{0, 0, 0}; }
+
+// a precedes b in slot order
+__device__ __forceinline__ Owner combine(const Owner& a, const Owner& b) {
+  return Owner{b.pack != 0 ? b.pack : a.pack, max(a.base, b.base),
+               a.rank + b.rank};
+}
+
+__device__ __forceinline__ Owner shfl_up(const Owner& v, int off) {
+  return Owner{__shfl_up_sync(kFull, v.pack, off),
+               __shfl_up_sync(kFull, v.base, off),
+               __shfl_up_sync(kFull, v.rank, off)};
+}
+
+__device__ __forceinline__ Owner shfl_idx(const Owner& v, int lane) {
+  return Owner{__shfl_sync(kFull, v.pack, lane),
+               __shfl_sync(kFull, v.base, lane),
+               __shfl_sync(kFull, v.rank, lane)};
+}
+
+__device__ __forceinline__ Owner warp_inclusive_scan(Owner v, int lane) {
+#pragma unroll
+  for (int off = 1; off < 32; off <<= 1) {
+    Owner u = shfl_up(v, off);
+    if (lane >= off) v = combine(u, v);
+  }
+  return v;
+}
+
+__device__ __forceinline__ Owner load_slot(const int* marks,
+                                           const int* base_in, long long idx,
+                                           long long k) {
+  if (idx >= k) return identity();
+  int m = marks[idx];
+  return Owner{m, base_in[idx], m != 0 ? 1 : 0};
+}
+
+// Scans tile `tile` in slot order; returns the tile's total (valid in every
+// thread) and leaves each slot's tile-local inclusive value in vals[].
+__device__ __forceinline__ Owner scan_tile(const int* marks,
+                                           const int* base_in, long long k,
+                                           long long tile,
+                                           Owner (&vals)[kScanItems],
+                                           Owner* warp_tot) {
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  const long long warp_base =
+      tile * kScanTile + (long long)warp * 32 * kScanItems;
+  Owner run = identity();
+#pragma unroll
+  for (int i = 0; i < kScanItems; ++i) {
+    Owner x = load_slot(marks, base_in, warp_base + 32 * i + lane, k);
+    x = combine(run, warp_inclusive_scan(x, lane));
+    vals[i] = x;
+    run = shfl_idx(x, 31);
+  }
+  if (lane == 0) warp_tot[warp] = run;
+  __syncthreads();
+  Owner total = identity();
+  for (int w = 0; w < kScanWarps; ++w) total = combine(total, warp_tot[w]);
+  return total;
+}
+
+__global__ void __launch_bounds__(kScanThreads)
+expand_reduce_kernel(const int* __restrict__ marks,
+                     const int* __restrict__ base_in, long long k,
+                     Owner* __restrict__ agg) {
+  __shared__ Owner warp_tot[kScanWarps];
+  Owner vals[kScanItems];
+  Owner total = scan_tile(marks, base_in, k, blockIdx.x, vals, warp_tot);
+  if (threadIdx.x == 0) agg[blockIdx.x] = total;
+}
+
+__global__ void __launch_bounds__(kScanThreads)
+expand_scan_kernel(const int* __restrict__ marks,
+                   const int* __restrict__ base_in, long long k,
+                   const Owner* __restrict__ agg, int* __restrict__ pack_out,
+                   int* __restrict__ base_out, int* __restrict__ rank_out) {
+  __shared__ Owner warp_tot[kScanWarps];
+  __shared__ Owner part[kScanWarps];
+  __shared__ int part_last[kScanWarps];
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  const long long tile = blockIdx.x;
+
+  // 1. Fold the aggregates of tiles [0, tile). base and rank commute; the
+  //    latest nonzero pack is the pack of the highest such tile, so track
+  //    that tile's index and reduce by max.
+  int rank_sum = 0, base_max = 0, last = -1;
+  for (long long j = threadIdx.x; j < tile; j += kScanThreads) {
+    Owner a = agg[j];
+    rank_sum += a.rank;
+    base_max = max(base_max, a.base);
+    if (a.pack != 0) last = (int)j;
+  }
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1) {
+    rank_sum += __shfl_down_sync(kFull, rank_sum, off);
+    base_max = max(base_max, __shfl_down_sync(kFull, base_max, off));
+    last = max(last, __shfl_down_sync(kFull, last, off));
+  }
+  if (lane == 0) {
+    part[warp] = Owner{0, base_max, rank_sum};
+    part_last[warp] = last;
+  }
+  __syncthreads();
+  Owner carry = identity();
+  int carry_last = -1;
+  for (int w = 0; w < kScanWarps; ++w) {
+    carry.rank += part[w].rank;
+    carry.base = max(carry.base, part[w].base);
+    carry_last = max(carry_last, part_last[w]);
+  }
+  if (carry_last >= 0) carry.pack = agg[carry_last].pack;
+
+  // 2. Scan this tile and add the carry.
+  Owner vals[kScanItems];
+  scan_tile(marks, base_in, k, tile, vals, warp_tot);
+  Owner prefix = carry;
+  for (int w = 0; w < warp; ++w) prefix = combine(prefix, warp_tot[w]);
+  const long long warp_base =
+      tile * kScanTile + (long long)warp * 32 * kScanItems;
+#pragma unroll
+  for (int i = 0; i < kScanItems; ++i) {
+    long long idx = warp_base + 32 * i + lane;
+    if (idx < k) {
+      Owner v = combine(prefix, vals[i]);
+      pack_out[idx] = v.pack;
+      base_out[idx] = v.base;
+      rank_out[idx] = v.rank;
+    }
+  }
+}
+
+__global__ void merge_expand_kernel(const int* __restrict__ starts,
+                                    const int* __restrict__ pack, int p,
+                                    int k, int* __restrict__ pack_out,
+                                    int* __restrict__ base_out,
+                                    int* __restrict__ rank_out) {
+  const int d = blockIdx.x * blockDim.x + threadIdx.x;
+  if (d >= k) return;
+  int lo = 0, hi = p;  // upper bound: first g with starts[g] > d
+  while (lo < hi) {
+    int mid = (lo + hi) >> 1;
+    if (starts[mid] <= d) {
+      lo = mid + 1;
+    } else {
+      hi = mid;
+    }
+  }
+  const int g = lo - 1;
+  pack_out[d] = g >= 0 ? pack[g] : 0;
+  base_out[d] = g >= 0 ? starts[g] : 0;
+  rank_out[d] = g + 1;
+}
+
+}  // namespace
+
+extern "C" int gsplat_expand_scan_tiles(long long k) {
+  return (int)((k + kScanTile - 1) / kScanTile);
+}
+
+// agg: scratch of gsplat_expand_scan_tiles(k) * 3 int32
+extern "C" int gsplat_expand_scan(const int* marks, const int* base_in,
+                                  long long k, int* agg, int* pack_out,
+                                  int* base_out, int* rank_out,
+                                  cudaStream_t stream) {
+  const int tiles = gsplat_expand_scan_tiles(k);
+  if (tiles == 0) return 0;
+  Owner* agg_o = reinterpret_cast<Owner*>(agg);
+  expand_reduce_kernel<<<tiles, kScanThreads, 0, stream>>>(marks, base_in, k,
+                                                          agg_o);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  expand_scan_kernel<<<tiles, kScanThreads, 0, stream>>>(
+      marks, base_in, k, agg_o, pack_out, base_out, rank_out);
+  return (int)cudaGetLastError();
+}
+
+extern "C" int gsplat_merge_expand(const int* starts, const int* pack, int p,
+                                   int k, int* pack_out, int* base_out,
+                                   int* rank_out, cudaStream_t stream) {
+  if (k == 0) return 0;
+  const int threads = 256;
+  merge_expand_kernel<<<(k + threads - 1) / threads, threads, 0, stream>>>(
+      starts, pack, p, k, pack_out, base_out, rank_out);
+  return (int)cudaGetLastError();
+}

@@ -1,0 +1,105 @@
+"""Owner-expansion kernels for binning (port of
+gsplat_tpu/raster/scan_kernel.py: ``expand_scan`` and ``merge_expand``).
+
+Each public function is a wrapper: a CUDA tensor launches the hand-written
+Hopper kernel in ``csrc/scan_kernels.cu`` (and adds one to the wrapper's
+``launches`` count), a CPU tensor takes the plain PyTorch version beside
+it. The source notes in the .cu file give each kernel's bound and design.
+
+- ``expand_scan`` replaces ``scan_kernel._expand_kernel``: one pass over
+  the slots computing the latest nonzero mark, the running max of
+  ``base_in`` (floored at 0, as the TPU carry starts at 0) and the 1-based
+  running count of nonzero marks.
+- ``merge_expand`` replaces ``scan_kernel._merge_kernel``: slot d's owner
+  is the last g with ``starts[g] <= d`` (``starts`` ascending); returns
+  ``pack[g]``, ``starts[g]`` and ``g + 1`` (all 0 where no start is <= d).
+  Slots at or past the duplicate count are dead: callers mask them.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from gsplat_tpu_torch.raster import cuda_ext
+
+
+def _check_i32(name: str, t: torch.Tensor, device: torch.device) -> None:
+    if t.dtype != torch.int32 or t.dim() != 1 or not t.is_contiguous():
+        raise ValueError(f"{name}: expected a contiguous 1-D int32 tensor, "
+                         f"got {t.dtype} {tuple(t.shape)}")
+    if t.device != device:
+        raise ValueError(f"{name} is on {t.device}, expected {device}")
+
+
+def expand_scan_plain(marks: torch.Tensor, base_in: torch.Tensor):
+    """Plain PyTorch version of ``expand_scan``."""
+    k = marks.shape[0]
+    nz = marks != 0
+    idx = torch.arange(k, dtype=torch.int64, device=marks.device)
+    last = torch.cummax(torch.where(nz, idx, torch.full_like(idx, -1)),
+                        dim=0).values
+    pack = torch.where(last >= 0, marks[last.clamp(min=0)],
+                       torch.zeros_like(marks))
+    if k:
+        base = torch.clamp(torch.cummax(base_in, dim=0).values, min=0)
+    else:
+        base = base_in.clone()
+    rank = torch.cumsum(nz.to(torch.int32), dim=0, dtype=torch.int32)
+    return pack, base, rank
+
+
+def expand_scan(marks: torch.Tensor, base_in: torch.Tensor):
+    """(pack, base, rank) int32 [K] — see the module docstring."""
+    device = marks.device
+    _check_i32("marks", marks, device)
+    _check_i32("base_in", base_in, device)
+    if base_in.shape != marks.shape:
+        raise ValueError(f"shape mismatch {marks.shape} vs {base_in.shape}")
+    if device.type == "cpu":
+        return expand_scan_plain(marks, base_in)
+    ext = cuda_ext.load()
+    k = marks.shape[0]
+    agg = torch.empty(3 * ext.expand_scan_tiles(k), dtype=torch.int32,
+                      device=device)
+    outs = [torch.empty_like(marks) for _ in range(3)]
+    ext.expand_scan(marks, base_in, agg, *outs)
+    expand_scan.launches += 1
+    return tuple(outs)
+
+
+expand_scan.launches = 0
+
+
+def merge_expand_plain(starts: torch.Tensor, pack: torch.Tensor, k: int):
+    """Plain PyTorch version of ``merge_expand``."""
+    d = torch.arange(k, dtype=torch.int32, device=starts.device)
+    g = torch.searchsorted(starts, d, right=True).to(torch.int32) - 1
+    has = g >= 0
+    gc = g.clamp(min=0).long()
+    zero = torch.zeros(k, dtype=torch.int32, device=starts.device)
+    if starts.shape[0] == 0:
+        return zero, zero.clone(), g + 1
+    return (torch.where(has, pack[gc], zero),
+            torch.where(has, starts[gc], zero), g + 1)
+
+
+def merge_expand(starts: torch.Tensor, pack: torch.Tensor, k: int):
+    """(pack_d, base_of_d, rank_d) int32 [k] — see the module docstring."""
+    device = starts.device
+    _check_i32("starts", starts, device)
+    _check_i32("pack", pack, device)
+    if pack.shape != starts.shape:
+        raise ValueError(f"shape mismatch {starts.shape} vs {pack.shape}")
+    if k >= 2**31 or starts.shape[0] >= 2**31:
+        raise ValueError("merge_expand indexes with int32")
+    if device.type == "cpu":
+        return merge_expand_plain(starts, pack, k)
+    ext = cuda_ext.load()
+    outs = [torch.empty(k, dtype=torch.int32, device=device)
+            for _ in range(3)]
+    ext.merge_expand(starts, pack, *outs)
+    merge_expand.launches += 1
+    return tuple(outs)
+
+
+merge_expand.launches = 0

@@ -1,0 +1,307 @@
+"""gsplat_tpu_torch kernel wrappers, without JAX.
+
+This module imports neither jax nor gsplat_tpu, so it also runs where only
+PyTorch is installed (the GPU host):
+
+- on the CPU, each plain PyTorch version is held against a numpy oracle
+  written as a loop from the kernel's definition (exact for the integer
+  scans, float32 tolerance for the render);
+- ``gpu`` tests hold each CUDA kernel against its plain version on the same
+  inputs: the scans bit-equal, images within two bf16 ULPs. They skip on a
+  host without an NVIDIA GPU. Run them there with
+  ``python -m pytest --noconftest -m gpu tests/test_torch_kernels.py``
+  (``--noconftest``: tests/conftest.py configures JAX).
+
+The case builders here are shared by the JAX parity tests.
+"""
+
+import numpy as np
+import pytest
+import torch
+
+from gsplat_tpu_torch import renderer as trenderer
+from gsplat_tpu_torch.core import camera as tcamera
+from gsplat_tpu_torch.model import gaussians as tgauss
+from gsplat_tpu_torch.raster import binning as tbinning
+from gsplat_tpu_torch.raster import cuda_ext
+from gsplat_tpu_torch.raster import rasterize as trasterize
+from gsplat_tpu_torch.raster import scan_kernel as tscan
+from gsplat_tpu_torch.raster import tile_kernel as ttile
+
+BG = [0.2, 0.3, 0.4]
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: the CUDA kernels have no CPU mode")
+    return torch.device("cuda")
+
+
+def make_params(p=300, cap=400, deg=1, seed=0):
+    """Raw GaussianState leaves (numpy) with an alive prefix of ``p``."""
+    rng = np.random.default_rng(seed)
+    k = (deg + 1) ** 2
+    z = np.zeros
+    par = dict(xyz=z((cap, 3)), f_dc=z((cap, 1, 3)), f_rest=z((cap, k - 1, 3)),
+               opacity=z((cap, 1)), scaling=z((cap, 3)), rotation=z((cap, 4)))
+    par["xyz"][:p] = np.c_[rng.uniform(-1.2, 1.2, (p, 2)),
+                           rng.uniform(2.0, 6.0, p)]
+    par["f_dc"][:p] = 1.0 + 0.3 * rng.normal(size=(p, 1, 3))
+    par["f_rest"][:p] = 0.3 * rng.normal(size=(p, k - 1, 3))
+    par["opacity"][:p] = rng.uniform(-2.0, 6.0, (p, 1))
+    par["scaling"][:p] = rng.uniform(-3.5, -1.5, (p, 3))
+    par["rotation"][:p] = rng.normal(size=(p, 4))
+    return {key: v.astype(np.float32) for key, v in par.items()}
+
+
+def expand_case(k, seed):
+    """Sparse marks incl. index 0, block edges and a whole empty block;
+    base_in as binning builds it."""
+    rng = np.random.default_rng(seed)
+    marks = np.zeros(k, np.int32)
+    edges = [e for e in (0, 4095, 4096, 2 * 4096 - 1, 8192) if e < k]
+    pos = np.unique(np.concatenate([rng.integers(100, k, 40), edges]))
+    pos = pos[(pos < 4096 * 2) | (pos >= 4096 * 3)]  # empty 3rd block
+    marks[pos] = rng.integers(1, 1 << 20, pos.shape[0])
+    base_in = np.where(marks != 0, np.arange(k, dtype=np.int32), 0)
+    return marks, base_in.astype(np.int32)
+
+
+# (active rows, total rows, slots)
+MERGE_CASES = [(50, 80, 700), (1000, 1200, 5000), (3, 5, 40), (0, 4, 30),
+               (600, 600, 512), (513, 513, 2048), (1500, 2000, 9000)]
+
+
+def merge_case(p_act, p_total, seed=0):
+    """Ascending range starts of ``p_act`` non-empty ranges followed by
+    empty ones, random packs, and the live slot count."""
+    rng = np.random.default_rng(seed)
+    counts = np.zeros(p_total, np.int32)
+    counts[:p_act] = rng.integers(1, 9, size=p_act)
+    offsets = np.concatenate([[0], np.cumsum(counts)]).astype(np.int32)
+    pack = rng.integers(1, 1 << 23, size=p_total).astype(np.int32)
+    return offsets[:p_total], pack, int(offsets[-1])
+
+
+def torch_scene(tile_x=16, tile_y=16, width=80, height=48, cap=400,
+                k_dup=1536, device="cpu"):
+    """A 300-Gaussian state, camera and inference settings on ``device``."""
+    par = make_params(cap=cap, seed=11)
+    state = tgauss.state_from_numpy(par, 300, 1, device)
+    cam = tcamera.make_camera(np.eye(3), np.zeros(3), 0.9, 0.7, width, height,
+                              device=device)
+    settings = trasterize.RasterizeSettings(k_dup=k_dup, tile_x=tile_x,
+                                            tile_y=tile_y, inference=True)
+    return state, cam, settings
+
+
+# ---------------------------------------------------------------- CPU ----
+
+@pytest.mark.parametrize("k", [150, 700, 3 * 4096 + 511])
+def test_expand_scan_plain_matches_loop(k):
+    marks, base_in = expand_case(k, seed=k)
+    pack, base, rank = np.zeros(k, np.int32), np.zeros(k, np.int32), \
+        np.zeros(k, np.int32)
+    carry = [0, 0, 0]
+    for i in range(k):
+        if marks[i]:
+            carry[0] = marks[i]
+            carry[2] += 1
+        carry[1] = max(carry[1], base_in[i])
+        pack[i], base[i], rank[i] = carry
+    got = tscan.expand_scan(torch.from_numpy(marks), torch.from_numpy(base_in))
+    for g, w in zip(got, (pack, base, rank)):
+        np.testing.assert_array_equal(g.numpy(), w)
+
+
+@pytest.mark.parametrize("p_act,p_total,k", MERGE_CASES)
+def test_merge_expand_plain_matches_loop(p_act, p_total, k):
+    starts, pack, num_dup = merge_case(p_act, p_total)
+    got = [g.numpy() for g in tscan.merge_expand(
+        torch.from_numpy(starts), torch.from_numpy(pack), k)]
+    for d in range(min(num_dup, k)):
+        owner = max(g for g in range(p_total) if starts[g] <= d)
+        assert (got[0][d], got[1][d], got[2][d]) == (
+            pack[owner], starts[owner], owner + 1), d
+
+
+def test_tile_histogram_is_exact():
+    rng = np.random.default_rng(5)
+    gx, gy, n = 7, 5, 200
+    mnx = rng.integers(0, gx, n)
+    mny = rng.integers(0, gy, n)
+    mxx = mnx + rng.integers(0, gx - mnx + 1)
+    mxy = mny + rng.integers(0, gy - mny + 1)
+    act = rng.uniform(size=n) < 0.7
+    want = np.zeros((gy, gx), np.int32)
+    for i in np.flatnonzero(act):
+        want[mny[i]:mxy[i], mnx[i]:mxx[i]] += 1
+    T = lambda a: torch.from_numpy(a.astype(np.int32))  # noqa: E731
+    got = tbinning._tile_histogram(T(mnx), T(mny), T(mxx), T(mxy),
+                                   torch.from_numpy(act), gx, gy)
+    np.testing.assert_array_equal(got.numpy(), want.reshape(-1))
+
+
+def render_case(seed=0, chunk=16, tile_x=8, tile_y=4, grid_x=3):
+    """Random feature stream over 4 tiles: tile 0 has 3 chunks (dense
+    opaque splats, so the tile-wide stop fires), tile 1 none, tiles 2 and 3
+    one each; two trailing sentinel chunks."""
+    rng = np.random.default_rng(seed)
+    tiles = [0, 0, 0, 2, 3, 6, 6]   # 6 == num_tiles: sentinel
+    n = len(tiles) * chunk
+    feat = np.zeros((9, n), np.float32)
+    for c, t in enumerate(tiles):
+        s = slice(c * chunk, (c + 1) * chunk)
+        ox, oy = (t % grid_x) * tile_x, (t // grid_x) * tile_y
+        feat[0, s] = ox + rng.uniform(-2, tile_x + 2, chunk)
+        feat[1, s] = oy + rng.uniform(-2, tile_y + 2, chunk)
+        lo, hi = (0.005, 0.02) if t == 0 else (0.05, 0.6)  # tile 0: wide
+        feat[2, s] = rng.uniform(lo, hi, chunk)
+        feat[3, s] = rng.uniform(-lo, lo, chunk)
+        feat[4, s] = rng.uniform(lo, hi, chunk)
+        feat[5, s] = rng.uniform(0.9 if t == 0 else 0.0, 1.0, chunk)
+        feat[6:9, s] = rng.uniform(0, 1, (3, chunk))
+    feat = torch.from_numpy(feat).to(torch.bfloat16).float().numpy()
+    tl = np.array(tiles, np.int32)
+    first = np.r_[1, tl[1:] != tl[:-1]].astype(np.int32)
+    last = np.r_[tl[1:] != tl[:-1], 1].astype(np.int32)
+    meta = (tl << 2) | (first << 1) | last
+    return feat, meta, dict(num_tiles=6, n_pix=tile_x * tile_y,
+                            tile_x=tile_x, tile_y=tile_y, grid_x=grid_x,
+                            chunk=chunk)
+
+
+def test_render_forward_plain_matches_loop():
+    feat, meta, kw = render_case()
+    tx, n_pix, chunk = kw["tile_x"], kw["n_pix"], kw["chunk"]
+    want = np.tile(np.asarray(BG, np.float32)[None, :, None],
+                   (kw["num_tiles"], 1, n_pix))
+    stopped = []
+    for t in range(kw["num_tiles"]):
+        chunks = [c for c in range(len(meta)) if meta[c] >> 2 == t]
+        ox, oy = (t % kw["grid_x"]) * tx, (t // kw["grid_x"]) * kw["tile_y"]
+        T = np.ones(n_pix, np.float32)
+        col = np.zeros((3, n_pix), np.float32)
+        px = (np.arange(n_pix) % tx).astype(np.float32)
+        py = (np.arange(n_pix) // tx).astype(np.float32)
+        for c in chunks:
+            for g in range(c * chunk, (c + 1) * chunk):
+                x, y, a, b, cc, opa = feat[:6, g]
+                dx, dy = px - (x - ox), py - (y - oy)
+                power = -0.5 * (a * dx * dx + cc * dy * dy) - b * dx * dy
+                alpha = np.minimum(ttile.ALPHA_MAX, opa * np.exp(power))
+                alpha = np.where((power > 0) | (alpha < ttile.ALPHA_MIN), 0.0,
+                                 alpha).astype(np.float32)
+                col += feat[6:9, g, None] * (alpha * T)
+                T = T * (1 - alpha)
+            if T.max() <= ttile.T_EPS:
+                stopped.append((t, c))
+                break
+        want[t] = col + T * np.asarray(BG, np.float32)[:, None]
+    assert stopped and stopped[0][0] == 0 and stopped[0][1] < 2, stopped
+    got = ttile.render_forward(torch.from_numpy(feat).to(torch.bfloat16),
+                               torch.from_numpy(meta), torch.tensor(BG), **kw)
+    assert got.dtype == torch.bfloat16
+    # float32 products in another order, then one bf16 rounding
+    np.testing.assert_allclose(got.float().numpy(), want, rtol=8e-3,
+                               atol=1e-5)
+
+
+def test_wrappers_reject_bad_inputs():
+    i32 = torch.zeros(8, dtype=torch.int32)
+    with pytest.raises(ValueError):
+        tscan.expand_scan(i32.long(), i32)
+    with pytest.raises(ValueError):
+        tscan.expand_scan(i32, torch.zeros(9, dtype=torch.int32))
+    with pytest.raises(ValueError):
+        tscan.merge_expand(torch.zeros((2, 4), dtype=torch.int32),
+                           torch.zeros((2, 4), dtype=torch.int32), 8)
+    feat = torch.zeros(9, 256, dtype=torch.bfloat16)
+    meta = torch.zeros(2, dtype=torch.int32)
+    kw = dict(num_tiles=1, tile_x=16, tile_y=16, grid_x=1, chunk=128)
+    with pytest.raises(ValueError):
+        ttile.render_forward(feat[:8], meta, torch.zeros(3), n_pix=256, **kw)
+    with pytest.raises(ValueError):
+        ttile.render_forward(feat, meta[:1], torch.zeros(3), n_pix=256, **kw)
+    with pytest.raises(ValueError):
+        ttile.render_forward(feat, meta, torch.zeros(3), n_pix=200, **kw)
+
+
+def test_extension_sources_and_flags():
+    """The build compiles every kernel source in csrc/ for sm_90a, with
+    PyTorch's headers in the one binding file only."""
+    for name in cuda_ext.SOURCES:
+        text = (cuda_ext.CSRC / name).read_text()
+        assert ("torch/extension.h" in text) == (name == "binding.cpp"), name
+    assert "-gencode=arch=compute_90a,code=sm_90a" in cuda_ext.CUDA_FLAGS
+    cu = sorted(p.name for p in cuda_ext.CSRC.glob("*.cu"))
+    assert cu == sorted(s for s in cuda_ext.SOURCES if s.endswith(".cu"))
+
+
+# ---------------------------------------------------------------- GPU ----
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("k", [700, 3 * 4096 + 511, 1 << 20])
+def test_expand_scan_cuda_matches_plain(cuda, k):
+    marks, base_in = expand_case(k, seed=k)
+    m, b = torch.from_numpy(marks), torch.from_numpy(base_in)
+    want = tscan.expand_scan_plain(m, b)
+    before = tscan.expand_scan.launches
+    got = tscan.expand_scan(m.to(cuda), b.to(cuda))
+    torch.cuda.synchronize()
+    assert tscan.expand_scan.launches == before + 1
+    for g, w in zip(got, want):
+        assert torch.equal(g.cpu(), w)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("p_act,p_total,k", MERGE_CASES)
+def test_merge_expand_cuda_matches_plain(cuda, p_act, p_total, k):
+    starts, pack, _ = merge_case(p_act, p_total)
+    s, p = torch.from_numpy(starts), torch.from_numpy(pack)
+    want = tscan.merge_expand_plain(s, p, k)
+    got = tscan.merge_expand(s.to(cuda), p.to(cuda), k)
+    torch.cuda.synchronize()
+    for g, w in zip(got, want):
+        assert torch.equal(g.cpu(), w)
+
+
+def within_bf16_ulps(got, want, ulps=2):
+    """|got - want| <= ``ulps`` bf16 ULPs of the larger magnitude."""
+    mag = torch.maximum(got.abs(), want.abs()).clamp(min=2.0 ** -126)
+    ulp = torch.exp2(torch.floor(torch.log2(mag)) - 7)
+    return bool(((got - want).abs() <= ulps * ulp).all())
+
+
+@pytest.mark.gpu
+def test_render_forward_cuda_matches_plain(cuda):
+    feat, meta, kw = render_case()
+    feat_t = torch.from_numpy(feat).to(torch.bfloat16)
+    want = ttile.render_forward(feat_t, torch.from_numpy(meta),
+                                torch.tensor(BG), **kw).float()
+    got = ttile.render_forward(feat_t.to(cuda), torch.from_numpy(meta).to(
+        cuda), torch.tensor(BG, device=cuda), **kw)
+    torch.cuda.synchronize()
+    assert within_bf16_ulps(got.float().cpu(), want)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("tiles,k_dup,cap", [((16, 16), 1536, 400),
+                                             ((16, 16), 1536, 1000),
+                                             ((128, 32), 1536, 400)])
+def test_render_cuda_matches_cpu_port(cuda, tiles, k_dup, cap):
+    """The whole slice on the card (both expansion branches and the render
+    kernel) against the port on the CPU."""
+    width = 256 if tiles[0] == 128 else 80
+    kw = dict(tile_x=tiles[0], tile_y=tiles[1], width=width, height=64,
+              cap=cap, k_dup=k_dup)
+    state, cam, settings = torch_scene(**kw)
+    want = trenderer.render(cam, state, BG, settings)
+    g_state, g_cam, _ = torch_scene(**kw, device=cuda)
+    got = trenderer.render(g_cam, g_state, BG, settings)
+    torch.cuda.synchronize()
+    assert int(got["num_dup"]) == int(want["num_dup"])
+    assert torch.equal(got["radii"].cpu(), want["radii"])
+    assert within_bf16_ulps(got["render"].float().cpu(),
+                            want["render"].float())
