@@ -23,14 +23,16 @@ the result line is printed:
            on the card: expand_scan and merge_expand bit-equal, the render
            within two bf16 ULPs per pixel; CUDA-event times of both
   small    a 300-Gaussian scene rendered on the card vs the port on the CPU
-  serve    launch counts zeroed, all 8 cameras of both settings through
-           viewer.serve.make_render_fn, counts read: every kernel launched;
+  serve    per setting, launch counts zeroed, its 8 cameras rendered
+           through viewer.serve.make_render_fn, counts read: each frame
+           launched its setting's expansion kernel and the render once;
            images finite, non-trivial and identical across the settings
   socket   python -m gsplat_tpu_torch.viewer.serve as a subprocess per
            setting, 3 SIBR requests with keep_alive; reply bytes must equal
            the in-process image
   fps      frames/s over 3 windows of 48 frames per setting
-  profile  device time by kernel over 8 frames and the device idle share
+  profile  device time by kernel over 8 frames; the device idle share
+           against the unprofiled frame time of the fps phase
   quality  PSNR of the served frame vs the plain render of an f32 feature
            stream (the bf16 global x/y rounding of the reference)
 
@@ -358,8 +360,7 @@ def socket_phase(model_dir, setting, k_dup, cams, render_fn, card_name):
     log_path = os.path.join(WORK, f"serve_{setting}.log")
     cmd = [sys.executable, "-m", "gsplat_tpu_torch.viewer.serve",
            "-m", model_dir, "--ip", "127.0.0.1", "--port", str(port),
-           "--cap_max", str(CAP_MAX), "--sh_degree", str(SH_DEGREE),
-           "--device", DEVICE]
+           "--cap_max", str(CAP_MAX), "--sh_degree", str(SH_DEGREE)]
     if setting == "merge":
         cmd += ["--dup_budget", str(k_dup)]
     t0 = time.time()
@@ -413,22 +414,29 @@ def socket_phase(model_dir, setting, k_dup, cams, render_fn, card_name):
             proc.wait()
 
 
-def profile_frames(fn, cams, setting, card_name):
-    """Device time by kernel over one pass of the cameras (torch.profiler)
-    and the device idle share of that window."""
+def pass_ms(fn, cams) -> float:
+    """Wall milliseconds per frame of one synchronised pass of the
+    cameras."""
     import torch
-    from torch.profiler import ProfilerActivity, profile
 
+    t0 = time.perf_counter()
     for cam in cams:
         fn(cam)
     torch.cuda.synchronize()
+    return (time.perf_counter() - t0) * 1e3 / len(cams)
+
+
+def profile_frames(fn, cams, setting, frame_ms, plain_pass_ms, card_name):
+    """Device time by kernel over one pass of the cameras (torch.profiler).
+    The profiler slows the host, so the idle share sets the device busy
+    time against ``frame_ms``, the unprofiled frame time of the fps phase;
+    the wall time of an unprofiled pass over the same cameras (taken
+    before any profiling) and of the profiled pass are logged beside it."""
+    from torch.profiler import ProfilerActivity, profile
+
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        for cam in cams:
-            fn(cam)
-        torch.cuda.synchronize()
-        wall_ms = (time.perf_counter() - t0) * 1e3
+        profiled_pass_ms = pass_ms(fn, cams)
     rows = []
     for e in prof.key_averages():
         dev_us = getattr(e, "self_device_time_total", 0) or 0
@@ -437,8 +445,9 @@ def profile_frames(fn, cams, setting, card_name):
                          e.key[:70]))
     rows.sort(reverse=True)
     busy = sum(r[0] for r in rows)
-    frame_ms = wall_ms / len(cams)
     log("profile", card=card_name, setting=setting, frame_ms=frame_ms,
+        unprofiled_pass_ms_per_frame=plain_pass_ms,
+        profiled_pass_ms_per_frame=profiled_pass_ms,
         device_busy_ms_per_frame=busy if rows else "not measured",
         idle_share=(1 - busy / frame_ms) if rows else "not measured",
         kernels_per_frame=sum(r[1] for r in rows),
@@ -561,21 +570,27 @@ def main() -> int:
     kernels = check_kernels(cap, card_name)
     check_small(card_name)
 
-    # ---- serving main path, launch counts zeroed just before
+    # ---- serving main paths, launch counts zeroed just before each and
+    # read just after: one owner-expansion kernel and the render per frame
     wrappers = {"expand_scan": scan_kernel.expand_scan,
                 "merge_expand": scan_kernel.merge_expand,
                 "render_forward": tile_kernel.render_forward}
-    for w in wrappers.values():
-        w.launches = 0
-    images = {}
-    for setting in ("expand", "merge"):
-        images[setting] = [render_fns[setting](cam) for cam in cams]
-    torch.cuda.synchronize()
-    launches = {name: w.launches for name, w in wrappers.items()}
-    for name, n in launches.items():
-        if n <= 0:
-            raise AssertionError(f"{name} never launched on the main path")
-        kernels[name]["launches"] = n
+    per_frame = {"expand": ("expand_scan", "render_forward"),
+                 "merge": ("merge_expand", "render_forward")}
+    images, launches = {}, {}
+    for setting, fn in render_fns.items():
+        for w in wrappers.values():
+            w.launches = 0
+        images[setting] = [fn(cam) for cam in cams]
+        torch.cuda.synchronize()
+        launches[setting] = {name: w.launches for name, w in wrappers.items()}
+        want = {name: len(cams) if name in per_frame[setting] else 0
+                for name in wrappers}
+        if launches[setting] != want:
+            raise AssertionError(f"{setting}: launches {launches[setting]}, "
+                                 f"expected {want}")
+    for name in wrappers:
+        kernels[name]["launches"] = sum(n[name] for n in launches.values())
     for setting, imgs in images.items():
         for img in imgs:
             if img.shape != (HEIGHT, WIDTH, 3) or not bool(
@@ -597,6 +612,7 @@ def main() -> int:
                      card_name)
 
     # ---- numbers
+    fps = {}
     for setting, fn in render_fns.items():
         for cam in cams:
             img = fn(cam)
@@ -608,16 +624,21 @@ def main() -> int:
                 img = fn(cams[i % len(cams)])
             torch.cuda.synchronize()
             windows.append(48 / (time.time() - t0))
+        fps[setting] = statistics.median(windows)
         clocks = subprocess.run(
             ["nvidia-smi", "--query-gpu=clocks.sm,power.draw,power.limit,"
              "temperature.gpu", "--format=csv,noheader"],
             capture_output=True, text=True, timeout=60).stdout.strip()
         log("fps", card=card_name, setting=setting, width=WIDTH,
-            height=HEIGHT, fps_windows=windows,
-            fps_median=statistics.median(windows), clocks_after=clocks,
+            height=HEIGHT, fps_windows=windows, fps_median=fps[setting],
+            clocks_after=clocks,
             peak_mem_gib=torch.cuda.max_memory_allocated() / 2 ** 30)
+    # unprofiled passes first: once a torch.profiler session has run, the
+    # host stays slower for the rest of the process
+    passes = {setting: pass_ms(fn, cams) for setting, fn in render_fns.items()}
     for setting, fn in render_fns.items():
-        profile_frames(fn, cams, setting, card_name)
+        profile_frames(fn, cams, setting, 1e3 / fps[setting], passes[setting],
+                       card_name)
     quality(cap_slot=store["_slot_features"][0],
             cap_render=cap["render_forward"],
             served=images["expand"][0], card_name=card_name)

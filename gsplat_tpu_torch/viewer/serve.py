@@ -4,12 +4,12 @@
 Usage:
   python -m gsplat_tpu_torch.viewer.serve -m <model_path> [--iteration N]
          [--ip 127.0.0.1] [--port 6009] [--cap_max N] [--sh_degree D]
-         [--dup_budget K] [--device cuda]
+         [--dup_budget K]
 
 Renders on the GPU through the inference rasterizer: bf16 feature stream,
 128x32 tiles, background composited in the kernel, duplicate budget
-``--dup_budget`` or 8 x cap_max. ``--device cpu`` runs the kernels' plain
-PyTorch versions instead.
+``--dup_budget`` or 8 x cap_max. ``serve`` and ``make_render_fn`` take a
+``device``; on the CPU they run the kernels' plain PyTorch versions.
 """
 
 from __future__ import annotations
@@ -100,7 +100,6 @@ def main(argv=None):
     parser.add_argument("--cap_max", type=int, default=1_000_000)
     parser.add_argument("--sh_degree", type=int, default=3)
     parser.add_argument("--dup_budget", type=int, default=0)
-    parser.add_argument("--device", default="cuda")
     args = parser.parse_args(argv)
 
     iteration = (args.iteration if args.iteration > 0
@@ -108,13 +107,13 @@ def main(argv=None):
     ply = f"{args.model_path}/point_cloud/iteration_{iteration}/point_cloud.ply"
     state = gaussians.load_ply(ply, capacity=args.cap_max,
                                max_sh_degree=args.sh_degree,
-                               device=args.device)
+                               device="cuda")
     print(f"serving {state.n_alive} gaussians from {ply}")
     k_dup = args.dup_budget or 8 * args.cap_max
     gui = network_gui.NetworkGUI(args.ip, args.port)
     print(f"listening on {args.ip}:{args.port}", flush=True)
     try:
-        serve(gui, state, k_dup, args.model_path, args.device)
+        serve(gui, state, k_dup, args.model_path, device="cuda")
     finally:
         gui.close()
 
