@@ -1,40 +1,64 @@
 #!/usr/bin/env python3
-"""On-card smoke test of the gsplat_tpu_torch serving path (one NVIDIA GPU).
+"""On-card smoke test of gsplat_tpu_torch (one NVIDIA GPU): the serving
+path and the static training path.
 
 Run from the root of a checkout:  python3 chip_smoke.py
 
-It builds the CUDA kernels from gsplat_tpu_torch/csrc, then serves a
-100k-Gaussian SH-3 model (written as a PLY from a seed) at cap_max 1M and
-1920x1088 through the port's own entry points, in the server's two owner
-expansion settings:
+It builds the CUDA kernels from gsplat_tpu_torch/csrc, then
 
-  expand   k_dup = 8 x cap_max = 8,000,000 (the server's default):
-           scatter-max + the expand_scan kernel (2 k_dup >= 7 P)
-  merge    --dup_budget 877,568 (raised by the 1.02 rule if a camera
-           needs more): the merge_expand kernel (2 k_dup < 7 P)
+- serves a 100k-Gaussian SH-3 model (written as a PLY from a seed) at
+  cap_max 1M and 1920x1088 through the port's own entry points, in the
+  server's two owner-expansion settings:
+    expand   k_dup = 8 x cap_max = 8,000,000 (the server's default):
+             scatter-max + the expand_scan kernel (2 k_dup >= 7 P)
+    merge    --dup_budget 877,568 (raised by the 1.02 rule if a camera
+             needs more): the merge_expand kernel (2 k_dup < 7 P)
+- trains in bench.py's two static settings (its recipes copied here):
+    100k-800x800  100k Gaussians, 8 orbit cameras, 64x16 tiles; the
+                  per-Gaussian gradient reduction is one scatter-add
+    1m-1296x840   1M Gaussians with trained-scene opacity/scale
+                  statistics, 4 cameras; the reduction is sort +
+                  multi_cumsum (P > 250k rows)
+  both binning through merge_expand.
 
 Phases, one JSON line each; any failure raises and exits non-zero before
 the result line is printed:
 
-  build    compile the kernels (seconds)
-  probe    num_dup of the 8 orbit cameras; the merge budget; kernel inputs
-           captured from the first camera of each setting
-  kernels  each kernel against its plain PyTorch version on those inputs,
-           on the card: expand_scan and merge_expand bit-equal, the render
-           within two bf16 ULPs per pixel; CUDA-event times of both
-  small    a 300-Gaussian scene rendered on the card vs the port on the CPU
-  serve    per setting, launch counts zeroed, its 8 cameras rendered
-           through viewer.serve.make_render_fn, counts read: each frame
-           launched its setting's expansion kernel and the render once;
-           images finite, non-trivial and identical across the settings
-  socket   python -m gsplat_tpu_torch.viewer.serve as a subprocess per
-           setting, 3 SIBR requests with keep_alive; reply bytes must equal
-           the in-process image
-  fps      frames/s over 3 windows of 48 frames per setting
-  profile  device time by kernel over 8 frames; the device idle share
-           against the unprofiled frame time of the fps phase
-  quality  PSNR of the served frame vs the plain render of an f32 feature
-           stream (the bf16 global x/y rounding of the reference)
+  build        compile the kernels (seconds)
+  probe        serving: num_dup of the 8 orbit cameras; the merge budget;
+               kernel inputs captured from the first camera of each setting
+  kernel       each serving kernel against its plain PyTorch version on
+               those inputs: expand_scan and merge_expand bit-equal, the
+               render within two bf16 ULPs; CUDA-event times of both
+  small        a 300-Gaussian scene rendered on the card vs the port on
+               the CPU
+  serve        per setting, launch counts zeroed, its 8 cameras rendered
+               through viewer.serve.make_render_fn, counts read
+  socket       python -m gsplat_tpu_torch.viewer.serve per setting, 3 SIBR
+               requests; reply bytes must equal the in-process image
+  fps          frames/s over 3 windows of 48 frames per setting
+  quality      the served frame vs the plain render of an f32 stream
+  train_probe  per training setting: num_dup per camera against the TPU
+               record (rel <= 1e-3, bench.py's gate), the probed k_dup
+  kernel       the blend forward and backward and multi_cumsum against
+               their plain versions on the inputs of each setting's first
+               step (forward: colour and T within 1e-5, used > 0 per slot
+               identical; backward: each dfeat row within 1e-4 of its max;
+               multi_cumsum: 2e-3 + 1e-5 |x| of a float64 cumsum); times
+  kernel_yardstick  merge_expand beside torch.searchsorted per setting
+  train_small  tests/fixtures/hw_parity_golden.npz replayed without JAX:
+               bench.py's gates, then one split densify iteration
+  train        per setting, counts zeroed: one warm step, 3 windows of
+               fused steps (20 / 10), counts read and held to one blend
+               forward, one blend backward and one merge_expand per step
+               (multi_cumsum one per step at 1M, none at 100k); then one
+               untimed split densify iteration
+  cli          python -m gsplat_tpu_torch.train.train_static on the
+               committed Blender fixture (300 iterations), held-out PSNR
+               >= 21.0 dB
+  profile      device time by kernel, serving, after every unprofiled
+               timing; the idle share against the unprofiled frame time
+  train_profile  the same for 3 training steps per setting
 
 Then the card's name and power limit (nvidia-smi), the kernels line and
 {"ok": true, "device": {...}} as the last line. Exits non-zero with no
@@ -82,12 +106,11 @@ def card() -> str:
 
 # ---------------------------------------------------------------- scene ----
 
-def write_scene_ply(path: str, p: int, sh_degree: int, seed: int = 0):
-    """The bench's render-stage model (__graft_entry__._make_scene recipe)
-    as raw PLY leaves: uniform cloud at z in [2, 6], log-uniform scales,
-    random quaternions, opacity logits in [-2, 4], SH DC around 1."""
-    from gsplat_tpu_torch.data import ply
-
+def scene_arrays(p: int, sh_degree: int, seed: int = 0):
+    """The __graft_entry__._make_scene recipe as raw numpy leaves (means,
+    log-scales, quaternions, opacity logits, SH): uniform cloud at z in
+    [2, 6], log-uniform scales, random quaternions, logits in [-2, 4], SH
+    DC around 1."""
     rng = np.random.default_rng(seed)
     means = rng.uniform(-1.2, 1.2, size=(p, 3)).astype(np.float32)
     means[:, 2] = rng.uniform(2.0, 6.0, size=p)
@@ -97,6 +120,15 @@ def write_scene_ply(path: str, p: int, sh_degree: int, seed: int = 0):
     shs = (0.3 * rng.normal(size=(p, (sh_degree + 1) ** 2, 3))
            ).astype(np.float32)
     shs[:, 0, :] += 1.0
+    return means, log_scales, quats, opa_logit, shs
+
+
+def write_scene_ply(path: str, p: int, sh_degree: int, seed: int = 0):
+    """The bench's render-stage model as a PLY."""
+    from gsplat_tpu_torch.data import ply
+
+    means, log_scales, quats, opa_logit, shs = scene_arrays(p, sh_degree,
+                                                            seed)
     ply.save_gaussian_ply(path, means, shs[:, :1], shs[:, 1:],
                           opa_logit[:, None], log_scales, quats)
 
@@ -170,6 +202,21 @@ def cuda_ms(fn, reps: int, warmup: int = 1) -> float:
     end.record()
     end.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def bound(nbytes, ops):
+    """(bound ms, "bytes" or "operations")."""
+    tb, to = nbytes / MEM_BPS, ops / FP32_OPS
+    return max(tb, to) * 1e3, ("bytes" if tb >= to else "operations")
+
+
+def searchsorted_ms(starts, k):
+    """library_ms of merge_expand: torch.searchsorted at its shapes (it
+    finds the owners only; the three gathers are not in it)."""
+    import torch
+
+    d = torch.arange(k, dtype=torch.int32, device=starts.device)
+    return cuda_ms(lambda: torch.searchsorted(starts, d, right=True), 20)
 
 
 def within_bf16_ulps(got, want, ulps: int = 2) -> bool:
@@ -270,9 +317,8 @@ def check_kernels(cap, card_name):
         ms=cuda_ms(lambda: scan_kernel.merge_expand(starts, pack, kk), 20),
         plain_ms=cuda_ms(lambda: scan_kernel.merge_expand_plain(
             starts, pack, kk), 5),
-        bound_ms=max(nbytes / MEM_BPS, ops / FP32_OPS) * 1e3,
-        bound_by="bytes" if nbytes / MEM_BPS >= ops / FP32_OPS
-        else "operations", library_ms=None, shape=f"P={p} K={kk}")
+        **dict(zip(("bound_ms", "bound_by"), bound(nbytes, ops))),
+        library_ms=searchsorted_ms(starts, kk), shape=f"P={p} K={kk}")
     log("kernel", card=card_name, **out["merge_expand"])
 
     args, kw = cap["render_forward"]
@@ -303,9 +349,8 @@ def check_kernels(cap, card_name):
                                                       **rkw), 10),
         plain_ms=cuda_ms(lambda: tile_kernel.render_forward_plain(
             feat, meta, bg, **rkw), 2),
-        bound_ms=max(nbytes / MEM_BPS, ops / FP32_OPS) * 1e3,
-        bound_by="bytes" if nbytes / MEM_BPS >= ops / FP32_OPS
-        else "operations", library_ms=None,
+        **dict(zip(("bound_ms", "bound_by"), bound(nbytes, ops))),
+        library_ms=None,
         shape=f"tiles={rkw['num_tiles']} slots={feat.shape[1]} "
               f"visited_chunks={visited}")
     log("kernel", card=card_name, **out["render_forward"])
@@ -481,6 +526,629 @@ def quality(cap_slot, cap_render, served, card_name):
         max_abs=float((served - ref).abs().max()))
 
 
+# ------------------------------------------------------------- training ----
+
+# The two static training settings: copies of bench.py's recipes
+# (bench.py:254-335 and :379-430), with numpy draws in bench.py's order.
+# num_dup / k_dup are the TPU records of the same scenes (BENCH_r05.json).
+TRAIN = {
+    "100k-800x800": dict(p=100_000, width=800, height=800, cams=8, wit=20,
+                         tpu_num_dup=138_188, tpu_k_dup=154_880),
+    "1m-1296x840": dict(p=1_000_000, width=1296, height=840, cams=4,
+                        wit=10, tpu_num_dup=3_063_690,
+                        tpu_k_dup=3_431_424),
+}
+TRAIN_P_GT = 20_000
+DUP_REL_GATE = 1e-3   # bench.py's dup_rel gate against the TPU counts
+TRAIN_TILE = (64, 16)
+TRAINED_STATS = os.path.join(ROOT, "tests", "fixtures", "trained_stats.npz")
+HW_GOLDEN = os.path.join(ROOT, "tests", "fixtures", "hw_parity_golden.npz")
+CLI_FIXTURE = os.path.join(ROOT, "tests", "fixtures", "quality_blender")
+# float operations per live (pixel, slot) pair, counted from
+# blend_kernels.cu: forward 2 offsets, 9 for the quadratic form, exp (2),
+# opa scale, clamp, two alpha tests, 1 - alpha, the product, the stop
+# test, the weight and 3 color FMAs (6); the backward repeats the first 20
+# and adds <dC, rgb> (5), the running sum (2), the suffix and dalpha (4),
+# de and dpower (2), the five geometry terms (17), d rgb (3) and the nine
+# per-slot sums over pixels (9)
+BLEND_FWD_OPS_PER_PAIR = 27
+BLEND_BWD_OPS_PER_PAIR = 62
+
+
+def probe_k_dup(need, chunk, headroom=1.12, floor=1 << 15):
+    """bench.py's budget rule: measured demand x 1.12, chunk-aligned."""
+    return -(-max(int(need * headroom), floor) // chunk) * chunk
+
+
+def make_scene_params(p, sh_degree, seed, device):
+    """__graft_entry__._make_scene as activated tensors (means, scales,
+    quats, opacities, shs)."""
+    import torch
+
+    from gsplat_tpu_torch.core.quaternion import normalize
+
+    means, log_scales, quats, opa_logit, shs = (
+        torch.as_tensor(a, device=device)
+        for a in scene_arrays(p, sh_degree, seed))
+    return (means, torch.exp(log_scales), normalize(quats),
+            torch.sigmoid(opa_logit), shs)
+
+
+def bench_gt_scene(rng, p_gt, device):
+    """bench.py's ground-truth scene (:266-274), activated."""
+    import torch
+
+    from gsplat_tpu_torch.core.quaternion import normalize
+
+    t = lambda a: torch.as_tensor(np.asarray(a, np.float32),  # noqa: E731
+                                  device=device)
+    means = t(rng.uniform(-0.9, 0.9, (p_gt, 3)))
+    scales = t(np.exp(rng.uniform(-3.2, -2.0, (p_gt, 3))))
+    quats = normalize(t(rng.normal(size=(p_gt, 4))))
+    opa = torch.sigmoid(t(rng.uniform(0, 3, p_gt)))
+    shs = t(np.concatenate([rng.uniform(-0.5, 1.5, (p_gt, 1, 3)),
+                            np.zeros((p_gt, 15, 3))], 1))
+    return means, scales, quats, opa, shs
+
+
+def trained_stats_state(p, sh, rng, device):
+    """bench.trained_stats_state with uniform positions: a 1M-capacity
+    state whose opacity and log-scale triples are drawn from the quantile
+    tables of a trained scene (tests/fixtures/trained_stats.npz), density-
+    corrected by -0.5 ln(P / N_source)."""
+    import dataclasses as dc
+
+    import torch
+
+    from gsplat_tpu_torch.model import gaussians
+
+    st = np.load(TRAINED_STATS)
+    pts = rng.uniform(-1, 1, (p, 3)).astype(np.float32)
+    state = gaussians.create_from_points(
+        pts, rng.uniform(0, 1, (p, 3)).astype(np.float32), capacity=p,
+        max_sh_degree=sh, device=device)
+    grid = np.linspace(0, 1, len(st["opacity_quantiles"]))
+    opa = np.interp(rng.uniform(0, 1, p).astype(np.float32), grid,
+                    st["opacity_quantiles"]).astype(np.float32)
+    opa = np.clip(opa, 1e-4, 1 - 1e-4)
+    sq = st["logscale_sorted_quantiles"]
+    u = rng.uniform(0, 1, p).astype(np.float32)
+    gridq = np.linspace(0, 1, len(sq))
+    triple = np.stack([np.interp(u, gridq, sq[:, i]) for i in range(3)], 1)
+    perm = rng.permuted(np.tile(np.arange(3), (p, 1)), axis=1)
+    logscale = np.take_along_axis(triple, perm, axis=1).astype(np.float32)
+    logscale += np.float32(-0.5 * np.log(max(p / max(int(st["n_alive"]), 1),
+                                             1.0)))
+    t = lambda a: torch.as_tensor(a, device=device)  # noqa: E731
+    return dc.replace(state, opacity=t(np.log(opa / (1 - opa))[:, None]),
+                      scaling=t(logscale))
+
+
+def build_training(card_name):
+    """Both settings: ground truths, initial states, probed budgets."""
+    import dataclasses as dc
+
+    import torch
+
+    from gsplat_tpu_torch import renderer
+    from gsplat_tpu_torch.model import gaussians
+    from gsplat_tpu_torch.raster import rasterize as rast
+
+    rng = np.random.default_rng(0)
+    bg = torch.zeros(3, device=DEVICE)
+    gt = bench_gt_scene(rng, TRAIN_P_GT, DEVICE)
+    out = {}
+    k_first = None
+    for name, cfg in TRAIN.items():
+        t0 = time.time()
+        cams = orbit_cameras(cfg["cams"], cfg["width"], cfg["height"],
+                             DEVICE)
+        base = rast.RasterizeSettings(
+            k_dup=8 * cfg["p"] if k_first is None else k_first,
+            tile_x=TRAIN_TILE[0], tile_y=TRAIN_TILE[1], chunk=128,
+            layout="chw")
+        with torch.no_grad():
+            gts = [rast.rasterize(*gt, c, SH_DEGREE, bg, base).image
+                   for c in cams]
+        if k_first is None:
+            pts = rng.uniform(-1, 1, (cfg["p"], 3)).astype(np.float32)
+            state = gaussians.create_from_points(
+                pts, rng.uniform(0, 1, (cfg["p"], 3)).astype(np.float32),
+                capacity=cfg["p"], max_sh_degree=SH_DEGREE, device=DEVICE)
+            probe = base
+        else:
+            state = trained_stats_state(cfg["p"], SH_DEGREE, rng, DEVICE)
+            probe = dc.replace(base, k_dup=1 << 21)
+        with torch.no_grad():
+            need = [int(renderer.render(c, state, bg, probe)["num_dup"])
+                    for c in cams]
+        settings = dc.replace(base, k_dup=probe_k_dup(max(need), 128))
+        if k_first is None:
+            k_first = settings.k_dup
+        rel = abs(max(need) - cfg["tpu_num_dup"]) / cfg["tpu_num_dup"]
+        if rel > DUP_REL_GATE:
+            raise AssertionError(f"{name}: num_dup {max(need)} vs the TPU's "
+                                 f"{cfg['tpu_num_dup']} (rel {rel:.2e})")
+        out[name] = dict(cams=cams, gts=gts, state=state, settings=settings)
+        log("train_probe", card=card_name, setting=name,
+            gaussians=state.n_alive, image=f"{cfg['width']}x{cfg['height']}",
+            num_dup_per_camera=need, num_dup_max=max(need),
+            tpu_num_dup=cfg["tpu_num_dup"], num_dup_rel=rel,
+            k_dup=settings.k_dup, tpu_k_dup=cfg["tpu_k_dup"],
+            gt_means=[round(float(g.mean()), 5) for g in gts],
+            seconds=time.time() - t0)
+    return out
+
+
+class _ExtProxy:
+    """The compiled extension with some functions recording their
+    arguments before they launch (the wrappers and their launch counts are
+    left as they are)."""
+
+    def __init__(self, ext, store):
+        self._ext, self._store = ext, store
+
+    def __getattr__(self, name):
+        fn = getattr(self._ext, name)
+        if name not in self._store:
+            return fn
+
+        def recorder(*args):
+            self._store[name].append(args)
+            return fn(*args)
+        return recorder
+
+
+@contextlib.contextmanager
+def capture_ext(store):
+    """Record the arguments of the kernel launches named in ``store``."""
+    from gsplat_tpu_torch.raster import cuda_ext
+
+    orig = cuda_ext.load
+    cuda_ext.load = lambda: _ExtProxy(orig(), store)
+    try:
+        yield
+    finally:
+        cuda_ext.load = orig
+
+
+def capture_training(setups, card_name):
+    """One train step per setting with its kernel inputs recorded (the
+    state is not advanced)."""
+    import torch
+
+    from gsplat_tpu_torch.model import optim
+    from gsplat_tpu_torch.raster import binning
+    from gsplat_tpu_torch.train import step as step_lib
+    from gsplat_tpu_torch.train.config import OptimizationConfig
+
+    caps = {}
+    for name, st in setups.items():
+        store = {"blend_forward": [], "blend_backward": [],
+                 "multi_cumsum": []}
+        merge = []
+        step = step_lib.make_train_step(OptimizationConfig(),
+                                        st["settings"], 4.0)
+        gen = torch.Generator(device=DEVICE)
+        gen.manual_seed(0)
+        with capture_ext(store), capture(binning, "merge_expand", merge):
+            step(st["state"], optim.init(st["state"].params()), gen,
+                 st["cams"][0], st["gts"][0], torch.zeros(3, device=DEVICE),
+                 1.0, SH_DEGREE)
+        torch.cuda.synchronize()
+        caps[name] = {k: v[0] for k, v in store.items() if v}
+        caps[name]["merge_expand"] = merge[0][0]
+    return caps
+
+
+def blend_kwargs(args):
+    """Wrapper keyword arguments from a recorded blend launch
+    (feat, chunk_meta, out(s)..., n_pix, tile_x, tile_y, grid_x, chunk)."""
+    feat, meta = args[0].detach(), args[1]
+    n_pix, tile_x, tile_y, grid_x, chunk = args[4:9]
+    num_tiles = args[2].shape[0]
+    return feat, meta, dict(num_tiles=num_tiles, n_pix=n_pix, tile_x=tile_x,
+                            tile_y=tile_y, grid_x=grid_x, chunk=chunk)
+
+
+def check_training_kernels(caps, card_name):
+    """The three training kernels against their plain versions on the
+    inputs of each setting's first step (detached: the plain versions must
+    not build an autograd graph)."""
+    import torch
+
+    with torch.no_grad():
+        return _check_training_kernels(caps, card_name)
+
+
+def _check_training_kernels(caps, card_name):
+    import torch
+
+    from gsplat_tpu_torch.raster import scan_kernel, tile_kernel
+
+    out = {}
+    for name, cap in caps.items():
+        feat, meta, kw = blend_kwargs(cap["blend_forward"])
+        stats = {}
+        want_ct, want_used = tile_kernel._blend_plain(feat, meta, stats=stats,
+                                                      **kw)
+        got_ct, got_used = tile_kernel.tile_blend_forward(feat, meta, **kw)
+        torch.cuda.synchronize()
+        bad_pix = int(((got_ct - want_ct).abs().amax(dim=1) > 1e-5).sum())
+        bad_slots = int(((got_used > 0) != (want_used > 0)).sum())
+        err = float((got_ct - want_ct).abs().max())
+        # flips at the 1e-4 stop threshold, if any, show as whole pixels
+        # beyond tolerance; both counts are gated at zero
+        if bad_pix or bad_slots:
+            raise AssertionError(f"{name}: blend forward vs plain: "
+                                 f"{bad_pix} pixels beyond 1e-5, "
+                                 f"{bad_slots} slots differ in used > 0")
+        k = feat.shape[1]
+        n_pix = kw["n_pix"]
+        nbytes = (stats["chunks"] * kw["chunk"] * 36 + meta.numel() * 4
+                  + kw["num_tiles"] * 16 * n_pix + 4 * k)
+        b_ms, b_by = bound(nbytes, stats["pairs"] * BLEND_FWD_OPS_PER_PAIR)
+        entry = dict(
+            name="tile_blend_forward", route="cuda",
+            source="gsplat_tpu_torch/csrc/blend_kernels.cu",
+            replaces="gsplat_tpu/raster/tile_kernel.py:348",
+            setting=name, max_abs_err=err, flips=bad_pix,
+            ms=cuda_ms(lambda: tile_kernel.tile_blend_forward(feat, meta,
+                                                              **kw), 10),
+            plain_ms=cuda_ms(lambda: tile_kernel.tile_blend_forward_plain(
+                feat, meta, **kw), 1, warmup=0),
+            bound_ms=b_ms, bound_by=b_by, library_ms=None,
+            shape=f"tiles={kw['num_tiles']} slots={k} "
+                  f"visited_chunks={stats['chunks']} "
+                  f"live_pairs={stats['pairs']}")
+        log("kernel", card=card_name, **entry)
+        out.setdefault("tile_blend_forward", {})[name] = entry
+
+        args = cap["blend_backward"]
+        feat, meta, kw = blend_kwargs(args)
+        dpack = args[2].detach()
+        want = tile_kernel.tile_blend_backward_plain(feat, meta, dpack, **kw)
+        got = tile_kernel.tile_blend_backward(feat, meta, dpack, **kw)
+        torch.cuda.synchronize()
+        row_max = want.abs().amax(dim=1)
+        row_err = (got - want).abs().amax(dim=1)
+        if bool((row_err > 1e-4 * row_max).any()):
+            raise AssertionError(f"{name}: blend backward vs plain, row "
+                                 f"errors {row_err.tolist()} vs maxima "
+                                 f"{row_max.tolist()}")
+        nbytes = (stats["chunks"] * kw["chunk"] * 36 + meta.numel() * 4
+                  + kw["num_tiles"] * 16 * n_pix + 36 * k)
+        b_ms, b_by = bound(nbytes, stats["pairs"] * BLEND_BWD_OPS_PER_PAIR)
+        entry = dict(
+            name="tile_blend_backward", route="cuda",
+            source="gsplat_tpu_torch/csrc/blend_kernels.cu",
+            replaces="gsplat_tpu/raster/tile_kernel.py:526",
+            setting=name, max_abs_err=float((got - want).abs().max()),
+            max_rel_row_err=float((row_err / row_max.clamp(min=1e-30)
+                                   ).max()),
+            ms=cuda_ms(lambda: tile_kernel.tile_blend_backward(
+                feat, meta, dpack, **kw), 10),
+            plain_ms=cuda_ms(lambda: tile_kernel.tile_blend_backward_plain(
+                feat, meta, dpack, **kw), 1, warmup=0),
+            bound_ms=b_ms, bound_by=b_by, library_ms=None,
+            shape=f"tiles={kw['num_tiles']} slots={k} "
+                  f"visited_chunks={stats['chunks']} "
+                  f"live_pairs={stats['pairs']}")
+        log("kernel", card=card_name, **entry)
+        out.setdefault("tile_blend_backward", {})[name] = entry
+
+        if "multi_cumsum" in cap:
+            x = cap["multi_cumsum"][0].detach()
+            got = scan_kernel.multi_cumsum(x)
+            ref = torch.cumsum(x.double(), dim=1)
+            torch.cuda.synchronize()
+            err = (got.double() - ref).abs()
+            if bool((err > 2e-3 + 1e-5 * ref.abs()).any()):
+                raise AssertionError(f"{name}: multi_cumsum vs float64, max "
+                                     f"abs {float(err.max())}")
+            plain = scan_kernel.multi_cumsum_plain(x)
+            n, kk = x.shape
+            b_ms, b_by = bound(8 * n * kk, n * kk)
+            entry = dict(
+                name="multi_cumsum", route="cuda",
+                source="gsplat_tpu_torch/csrc/scan_kernels.cu",
+                replaces="gsplat_tpu/raster/scan_kernel.py:103",
+                setting=name, max_abs_err=float(err.max()),
+                max_abs_vs_plain=float((got - plain).abs().max()),
+                ms=cuda_ms(lambda: scan_kernel.multi_cumsum(x), 20),
+                plain_ms=cuda_ms(lambda: scan_kernel.multi_cumsum_plain(x),
+                                 5),
+                bound_ms=b_ms, bound_by=b_by,
+                library_ms=cuda_ms(lambda: torch.cumsum(x, dim=1), 20),
+                shape=f"n={n} K={kk}")
+            log("kernel", card=card_name, **entry)
+            out.setdefault("multi_cumsum", {})[name] = entry
+    return out
+
+
+# The golden's inference image carries the JAX kernel's bf16 log-scan of
+# T and bf16 colour matmul; the port composites in float32, so the two
+# differ by the golden's own rounding (61.13 dB on the CPU) while both sit
+# equally far from the float32 training image. bench.py's 62 dB gate held
+# Mosaic against the interpret mode of the same algorithm.
+INFER_GATE_DB = 60.0
+# Adam's first step moves each entry by lr * sign(grad): an entry whose
+# gradient is below this share of the leaf's largest has no sign the
+# golden's bf16-split arithmetic resolves (tile_kernel.py:168-176).
+SIGN_FLOOR = 2e-4
+
+
+def delta_rel_l2(delta, golden, grad):
+    """(rel-L2 of the Adam delta against the golden, the same over the
+    entries whose gradient sign is determined, count of the others)."""
+    d, g = delta.astype(np.float64), golden.astype(np.float64)
+    det = np.abs(grad) >= SIGN_FLOOR * np.abs(grad).max()
+
+    def rel(mask):
+        return float(np.linalg.norm((d - g)[mask])
+                     / (np.linalg.norm(g[mask]) + 1e-12))
+    return rel(np.ones_like(det)), rel(det), int((~det).sum())
+
+
+def train_small(card_name):
+    """hw_parity_golden.npz replayed through the port (the recipe of
+    scripts/gen_hw_parity_golden.py::build_inputs, without JAX): images,
+    loss, num_dup and the Adam deltas of one train step against the
+    golden, with bench.py's gates; then one split densify iteration on a
+    state of twice the capacity."""
+    import dataclasses as dc
+
+    import torch
+
+    from gsplat_tpu_torch.model import gaussians, optim
+    from gsplat_tpu_torch.raster import rasterize as rast
+    from gsplat_tpu_torch.train import step as step_lib
+    from gsplat_tpu_torch.train.config import OptimizationConfig
+
+    golden = np.load(HW_GOLDEN)
+    p_model, w, h = 8192, 256, 256
+    scene = make_scene_params(4096, SH_DEGREE, 0, DEVICE)
+    cam = orbit_cameras(3, w, h, DEVICE)[1]
+    rng = np.random.default_rng(1)
+    pts = rng.uniform(-1.2, 1.2, (p_model, 3)).astype(np.float32)
+    pts[:, 2] = rng.uniform(2.0, 6.0, p_model)
+    colors = rng.uniform(0, 1, (p_model, 3)).astype(np.float32)
+    yy, xx = np.meshgrid(np.linspace(0, 1, h), np.linspace(0, 1, w),
+                         indexing="ij")
+    gt = torch.as_tensor(np.stack([xx, yy, 0.5 * (xx + yy)], 0).astype(
+        np.float32), device=DEVICE)
+    bg = torch.zeros(3, device=DEVICE)
+    settings = rast.RasterizeSettings(k_dup=1 << 16, tile_x=64, tile_y=16,
+                                      chunk=128)
+    with torch.no_grad():
+        train_img = rast.rasterize(*scene, cam, SH_DEGREE, bg,
+                                   settings).image
+        infer_img = rast.rasterize(*scene, cam, SH_DEGREE, bg, dc.replace(
+            settings, inference=True)).image.float()
+    state = gaussians.create_from_points(pts, colors, p_model, SH_DEGREE,
+                                         device=DEVICE)
+    opt = OptimizationConfig()
+    gen = torch.Generator(device=DEVICE)
+    gen.manual_seed(7)
+    # the fused step as grad + apply, to keep the gradients
+    grads, m = step_lib.make_grad_step(opt, settings, 4.0)(
+        state, cam, gt, bg, 2)
+    new, _ = step_lib.make_apply_step(opt, 4.0)(
+        state, optim.init(state.params()), grads, gen, 100.0, True)
+
+    def psnr_db(a, b):
+        mse = float(np.mean((np.clip(a, 0, 1) - np.clip(b, 0, 1)) ** 2))
+        return min(-10.0 * np.log10(mse + 1e-30), 99.0)
+
+    host = lambda t: t.detach().cpu().numpy()  # noqa: E731
+    res = dict(
+        train_psnr=psnr_db(host(train_img), golden["train_img"]),
+        infer_psnr=psnr_db(host(infer_img), golden["infer_img"]),
+        infer_vs_golden_train_psnr=psnr_db(
+            host(infer_img), golden["train_img"].transpose(2, 0, 1)),
+        golden_infer_vs_golden_train_psnr=psnr_db(
+            golden["infer_img"], golden["train_img"].transpose(2, 0, 1)),
+        loss=float(m.loss), golden_loss=float(golden["loss"]),
+        num_dup=int(m.num_dup), golden_num_dup=int(golden["num_dup"]))
+    for key, leaf in (("dopacity", "opacity"), ("dscaling", "scaling"),
+                      ("dxyz", "xyz")):
+        raw, det, n_undet = delta_rel_l2(
+            host(getattr(new, leaf) - getattr(state, leaf)), golden[key],
+            host(grads[leaf]))
+        res[f"{key}_rel"], res[f"{key}_rel_determined"] = raw, det
+        res[f"{key}_undetermined_entries"] = n_undet
+    res["loss_rel"] = abs(res["loss"] - res["golden_loss"]) / abs(
+        res["golden_loss"])
+    res["num_dup_rel"] = abs(res["num_dup"] - res["golden_num_dup"]) / max(
+        res["golden_num_dup"], 1)
+    gates = [res["train_psnr"] >= 85.0, res["infer_psnr"] >= INFER_GATE_DB,
+             res["loss_rel"] <= 1e-4, res["num_dup_rel"] <= 1e-3,
+             res["dopacity_rel_determined"] <= 3e-2,
+             res["dscaling_rel_determined"] <= 3e-2]
+    if not all(gates):
+        raise AssertionError(f"train_small golden gates failed: {res}")
+
+    # one split densify iteration at twice the capacity
+    big = gaussians.create_from_points(pts, colors, 2 * p_model, SH_DEGREE,
+                                       device=DEVICE)
+    adam = optim.init(big.params())
+    grads, _ = step_lib.make_grad_step(opt, settings, 4.0)(
+        big, cam, gt, bg, SH_DEGREE)
+    big, adam = step_lib.make_densify_step(2 * p_model)(big, adam, gen)
+    big, adam = step_lib.make_apply_step(opt, 4.0)(big, adam, grads, gen,
+                                                   100.0, False)
+    grown = int(1.05 * p_model)
+    new_rows = slice(p_model, grown)
+    zero = all(float(v[new_rows].abs().max()) == 0.0
+               for tree in (adam.mu, adam.nu) for v in tree.values())
+    if big.n_alive != grown or not zero:
+        raise AssertionError(f"densify: n_alive {big.n_alive} (want "
+                             f"{grown}), new-row moments zero: {zero}")
+    log("train_small", card=card_name, **res, densify_n_alive=big.n_alive,
+        densify_new_row_moments_zero=zero)
+
+
+def train_setting(name, st, wrappers, card_name):
+    """The setting's main path: counts zeroed, one warm step and 3 timed
+    windows of fused steps, counts read; then one untimed split densify
+    iteration. Returns (launches, ms per step, losses)."""
+    import torch
+
+    from gsplat_tpu_torch.model import optim
+    from gsplat_tpu_torch.train import step as step_lib
+    from gsplat_tpu_torch.train.config import OptimizationConfig
+
+    cfg = TRAIN[name]
+    cams, gts, settings = st["cams"], st["gts"], st["settings"]
+    opt = OptimizationConfig()
+    bg = torch.zeros(3, device=DEVICE)
+    step = step_lib.make_train_step(opt, settings, 4.0)
+    gen = torch.Generator(device=DEVICE)
+    gen.manual_seed(0)
+    state, adam = st["state"], optim.init(st["state"].params())
+    for w in wrappers.values():
+        w.launches = 0
+    state, adam, m = step(state, adam, gen, cams[0], gts[0], bg, 1.0,
+                          SH_DEGREE)
+    torch.cuda.synchronize()
+    ms, losses, dups = [], [], []
+    it = 0
+    for _ in range(3):
+        t0 = time.perf_counter()
+        for _ in range(cfg["wit"]):
+            state, adam, m = step(state, adam, gen, cams[it % len(cams)],
+                                  gts[it % len(cams)], bg, float(it + 2),
+                                  SH_DEGREE)
+            dups.append(m.num_dup)
+            it += 1
+        losses.append(float(m.loss))     # synchronises
+        ms.append((time.perf_counter() - t0) * 1e3 / cfg["wit"])
+    torch.cuda.synchronize()
+    launches = {k: w.launches for k, w in wrappers.items()}
+    steps = 1 + 3 * cfg["wit"]
+    segsum = "1m" in name
+    want = {k: 0 for k in wrappers}
+    want.update(tile_blend_forward=steps, tile_blend_backward=steps,
+                merge_expand=steps, multi_cumsum=steps if segsum else 0)
+    if launches != want:
+        raise AssertionError(f"{name}: launches {launches}, expected {want}")
+    if not all(math.isfinite(x) for x in losses) or len(set(losses)) != 3:
+        raise AssertionError(f"{name}: window losses {losses}")
+    max_dup = max(int(d) for d in dups)
+    if max_dup > settings.k_dup:
+        raise AssertionError(f"{name}: num_dup {max_dup} > {settings.k_dup}")
+
+    # one untimed split densify iteration (grad -> densify -> Adam + noise)
+    dead = int((state.alive_mask & (state.get_opacity()[:, 0] <= 0.005)
+                ).sum())
+    grads, _ = step_lib.make_grad_step(opt, settings, 4.0)(
+        state, cams[0], gts[0], bg, SH_DEGREE)
+    n_before = state.n_alive
+    state, adam = step_lib.make_densify_step(state.capacity)(state, adam,
+                                                             gen)
+    state, adam = step_lib.make_apply_step(opt, 4.0)(
+        state, adam, grads, gen, float(it + 2), dead == 0)
+    torch.cuda.synchronize()
+    if segsum and dead == 0:
+        raise AssertionError(f"{name}: relocation moved no rows")
+    log("train", card=card_name, setting=name, steps=steps,
+        window_ms_per_step=ms, ms_per_step_median=statistics.median(ms),
+        it_per_s_median=1e3 / statistics.median(ms), window_losses=losses,
+        max_num_dup=max_dup, k_dup=settings.k_dup,
+        launches_per_step={k: v / steps for k, v in launches.items()},
+        densify_relocated=dead, n_alive_before=n_before,
+        n_alive_after=state.n_alive,
+        peak_mem_gib=torch.cuda.max_memory_allocated() / 2 ** 30)
+    return launches, statistics.median(ms), state, adam
+
+
+def profile_train(name, st, state, adam, step_ms, card_name):
+    """Device time by kernel over 3 fused steps; the idle share sets the
+    device busy time against the unprofiled step time."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from gsplat_tpu_torch.train import step as step_lib
+    from gsplat_tpu_torch.train.config import OptimizationConfig
+
+    step = step_lib.make_train_step(OptimizationConfig(), st["settings"],
+                                    4.0)
+    gen = torch.Generator(device=DEVICE)
+    gen.manual_seed(1)
+    bg = torch.zeros(3, device=DEVICE)
+    n = 3
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for i in range(n):
+            state, adam, m = step(state, adam, gen, st["cams"][i % 4],
+                                  st["gts"][i % 4], bg, 100.0 + i,
+                                  SH_DEGREE)
+        torch.cuda.synchronize()
+    rows = []
+    for e in prof.key_averages():
+        dev_us = getattr(e, "self_device_time_total", 0) or 0
+        if str(getattr(e, "device_type", "")).endswith("CUDA") and dev_us:
+            rows.append((dev_us / 1e3 / n, e.count // n, e.key[:70]))
+    rows.sort(reverse=True)
+    busy = sum(r[0] for r in rows)
+    log("train_profile", card=card_name, setting=name, step_ms=step_ms,
+        device_busy_ms_per_step=busy if rows else "not measured",
+        idle_share=(1 - busy / step_ms) if rows else "not measured",
+        kernels_per_step=sum(r[1] for r in rows),
+        top=[{"kernel": k, "ms_per_step": round(ms, 4), "calls": c}
+             for ms, c, k in rows[:16]])
+
+
+def cli_phase(card_name):
+    """The trainer CLI on the committed Blender fixture with the flags of
+    tests/test_quality_regression.py, then the held-out PSNR of the saved
+    PLY (gate 21.0 dB, as the JAX test's)."""
+    import torch
+
+    from gsplat_tpu_torch import renderer
+    from gsplat_tpu_torch.data.scene import Scene
+    from gsplat_tpu_torch.model import gaussians
+    from gsplat_tpu_torch.raster import rasterize as rast
+
+    out_dir = os.path.join(WORK, "cli_model")
+    cmd = [sys.executable, "-m", "gsplat_tpu_torch.train.train_static",
+           "-s", CLI_FIXTURE, "-m", out_dir, "--eval", "-w",
+           "--cap_max", "512", "--init_pts", "256", "--iterations", "300",
+           "--densify_from_iter", "50", "--densify_until_iter", "280",
+           "--densification_interval", "50", "--test_iterations", "-1",
+           "--save_iterations", "-1", "--dup_budget", "16384"]
+    t0 = time.time()
+    res = subprocess.run(cmd, cwd=ROOT, capture_output=True, text=True,
+                         timeout=600)
+    if res.returncode:
+        raise RuntimeError(f"trainer CLI rc={res.returncode}: "
+                           + (res.stdout + res.stderr)[-3000:])
+    seconds = time.time() - t0
+    scene = Scene(CLI_FIXTURE, "", eval_split=True, white_background=True,
+                  init_type="random", num_pts=8, shuffle=False,
+                  device=DEVICE)
+    state = gaussians.load_ply(
+        os.path.join(out_dir, "point_cloud/iteration_300/point_cloud.ply"),
+        capacity=512, max_sh_degree=3, device=DEVICE)
+    settings = rast.RasterizeSettings(k_dup=16384, tile_x=16, tile_y=16)
+    psnrs = []
+    for cam_obj in scene.test_cameras:
+        cam, gt = cam_obj.load()
+        with torch.no_grad():
+            img = renderer.render(cam, state, torch.ones(3, device=DEVICE),
+                                  settings)["render"]
+        a = np.clip(img.cpu().numpy(), 0, 1)
+        psnrs.append(float(-10 * np.log10(np.mean((a - np.clip(gt, 0, 1))
+                                                   ** 2) + 1e-12)))
+    mean = float(np.mean(psnrs))
+    if mean < 21.0:
+        raise AssertionError(f"trainer CLI: held-out PSNR {mean:.2f} dB < "
+                             f"21.0 ({psnrs})")
+    log("cli", card=card_name, iterations=300, seconds=seconds,
+        heldout_psnr_db=mean, per_view_db=psnrs,
+        n_alive=state.n_alive)
+
+
 def main() -> int:
     try:
         import torch
@@ -636,18 +1304,56 @@ def main() -> int:
     # unprofiled passes first: once a torch.profiler session has run, the
     # host stays slower for the rest of the process
     passes = {setting: pass_ms(fn, cams) for setting, fn in render_fns.items()}
-    for setting, fn in render_fns.items():
-        profile_frames(fn, cams, setting, 1e3 / fps[setting], passes[setting],
-                       card_name)
     quality(cap_slot=store["_slot_features"][0],
             cap_render=cap["render_forward"],
             served=images["expand"][0], card_name=card_name)
 
+    # ---- training: settings, kernels vs plain, the golden replay
+    setups = build_training(card_name)
+    train_caps = capture_training(setups, card_name)
+    train_kernels = check_training_kernels(train_caps, card_name)
+    for name, c in train_caps.items():
+        starts_t, pack_t, k_t = c["merge_expand"]
+        log("kernel_yardstick", card=card_name, setting=name,
+            name="merge_expand", shape=f"P={starts_t.shape[0]} K={k_t}",
+            ms=cuda_ms(lambda: scan_kernel.merge_expand(starts_t, pack_t,
+                                                        k_t), 20),
+            library_ms=searchsorted_ms(starts_t, k_t))
+    train_small(card_name)
+
+    # ---- training main paths, counts zeroed before each setting
+    wrappers.update(tile_blend_forward=tile_kernel.tile_blend_forward,
+                    tile_blend_backward=tile_kernel.tile_blend_backward,
+                    multi_cumsum=scan_kernel.multi_cumsum)
+    for name in ("tile_blend_forward", "tile_blend_backward",
+                 "multi_cumsum"):
+        kernels[name] = dict(train_kernels[name]["1m-1296x840"])
+    train_launches, step_ms, trained = {}, {}, {}
+    for name, st in setups.items():
+        train_launches[name], step_ms[name], *trained[name] = train_setting(
+            name, st, wrappers, card_name)
+    for name in wrappers:
+        kernels[name]["launches"] = (
+            sum(n.get(name, 0) for n in launches.values())
+            + sum(n[name] for n in train_launches.values()))
+    cli_phase(card_name)
+
+    # ---- device time by kernel, after every unprofiled timing
+    for setting, fn in render_fns.items():
+        profile_frames(fn, cams, setting, 1e3 / fps[setting], passes[setting],
+                       card_name)
+    for name, st in setups.items():
+        profile_train(name, st, *trained[name], step_ms[name], card_name)
+
     log("done", card=card_name, seconds=time.time() - t_start)
     print(card_name)
     print(json.dumps({"kernels": [
-        {k: v for k, v in kernels[name].items() if k != "shape"}
-        for name in ("expand_scan", "merge_expand", "render_forward")]}))
+        {k: v for k, v in kernels[name].items()
+         if k not in ("shape", "setting", "flips", "max_rel_row_err",
+                      "max_abs_vs_plain")}
+        for name in ("expand_scan", "merge_expand", "render_forward",
+                     "tile_blend_forward", "tile_blend_backward",
+                     "multi_cumsum")]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

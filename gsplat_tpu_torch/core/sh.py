@@ -120,3 +120,8 @@ def sh_to_rgb(deg: int, sh: torch.Tensor, means: torch.Tensor,
 def rgb_to_sh(rgb):
     """Invert the DC band (utils/sh_utils.py:114-115)."""
     return (rgb - 0.5) / C0
+
+
+def sh_to_rgb_dc(sh):
+    """DC band to RGB (utils/sh_utils.py:117-118)."""
+    return sh * C0 + 0.5

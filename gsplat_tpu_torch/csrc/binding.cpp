@@ -1,7 +1,8 @@
 // PyTorch binding of the hand-written kernels (scan_kernels.cu,
-// render_kernel.cu). The only source that includes torch/extension.h; the
-// kernels themselves have a plain C interface so nvcc never compiles
-// PyTorch's headers. The Python wrappers in raster/scan_kernel.py and
+// render_kernel.cu, blend_kernels.cu). The only source that includes
+// torch/extension.h; the kernels themselves have a plain C interface so
+// nvcc never compiles PyTorch's headers. The Python wrappers in
+// raster/scan_kernel.py and
 // raster/tile_kernel.py check device, dtype, shape and contiguity and
 // allocate every output; this file passes pointers and PyTorch's current
 // stream and raises when a launch is refused.
@@ -22,6 +23,19 @@ int gsplat_render_forward(const void* feat, long long k_slots,
                           const float* bg, void* out, int num_tiles,
                           int n_pix, int tile_x, int tile_y, int grid_x,
                           int chunk, cudaStream_t stream);
+int gsplat_blend_forward(const float* feat, long long k_slots,
+                         const int* chunk_meta, int n_chunks, float* ct,
+                         int* used, int num_tiles, int n_pix, int tile_x,
+                         int tile_y, int grid_x, int chunk,
+                         cudaStream_t stream);
+int gsplat_blend_backward(const float* feat, long long k_slots,
+                          const int* chunk_meta, int n_chunks,
+                          const float* dpack, float* dfeat, int num_tiles,
+                          int n_pix, int tile_x, int tile_y, int grid_x,
+                          int chunk, cudaStream_t stream);
+int gsplat_cumsum_blocks(long long k);
+int gsplat_multi_cumsum(const float* x, int n, long long k, float* totals,
+                        float* out, cudaStream_t stream);
 }
 
 namespace {
@@ -71,6 +85,46 @@ void render_forward(torch::Tensor feat, torch::Tensor chunk_meta,
         "render_forward");
 }
 
+void blend_forward(torch::Tensor feat, torch::Tensor chunk_meta,
+                   torch::Tensor ct, torch::Tensor used, int64_t n_pix,
+                   int64_t tile_x, int64_t tile_y, int64_t grid_x,
+                   int64_t chunk) {
+  check(gsplat_blend_forward(
+            feat.data_ptr<float>(), feat.size(1),
+            chunk_meta.data_ptr<int>(),
+            static_cast<int>(chunk_meta.numel()), ct.data_ptr<float>(),
+            used.data_ptr<int>(), static_cast<int>(ct.size(0)),
+            static_cast<int>(n_pix), static_cast<int>(tile_x),
+            static_cast<int>(tile_y), static_cast<int>(grid_x),
+            static_cast<int>(chunk), stream()),
+        "blend_forward");
+}
+
+void blend_backward(torch::Tensor feat, torch::Tensor chunk_meta,
+                    torch::Tensor dpack, torch::Tensor dfeat, int64_t n_pix,
+                    int64_t tile_x, int64_t tile_y, int64_t grid_x,
+                    int64_t chunk) {
+  check(gsplat_blend_backward(
+            feat.data_ptr<float>(), feat.size(1),
+            chunk_meta.data_ptr<int>(),
+            static_cast<int>(chunk_meta.numel()), dpack.data_ptr<float>(),
+            dfeat.data_ptr<float>(), static_cast<int>(dpack.size(0)),
+            static_cast<int>(n_pix), static_cast<int>(tile_x),
+            static_cast<int>(tile_y), static_cast<int>(grid_x),
+            static_cast<int>(chunk), stream()),
+        "blend_backward");
+}
+
+int64_t cumsum_blocks(int64_t k) { return gsplat_cumsum_blocks(k); }
+
+void multi_cumsum(torch::Tensor x, torch::Tensor totals, torch::Tensor out) {
+  check(gsplat_multi_cumsum(x.data_ptr<float>(),
+                            static_cast<int>(x.size(0)), x.size(1),
+                            totals.data_ptr<float>(), out.data_ptr<float>(),
+                            stream()),
+        "multi_cumsum");
+}
+
 }  // namespace
 
 PYBIND11_MODULE(TORCH_EXTENSION_NAME, m) {
@@ -78,4 +132,8 @@ PYBIND11_MODULE(TORCH_EXTENSION_NAME, m) {
   m.def("expand_scan", &expand_scan);
   m.def("merge_expand", &merge_expand);
   m.def("render_forward", &render_forward);
+  m.def("blend_forward", &blend_forward);
+  m.def("blend_backward", &blend_backward);
+  m.def("cumsum_blocks", &cumsum_blocks);
+  m.def("multi_cumsum", &multi_cumsum);
 }

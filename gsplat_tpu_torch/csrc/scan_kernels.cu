@@ -20,6 +20,20 @@
 // stay in the 50 MB L2 after the first blocks touch them). Bound: bytes,
 // 12 B written per slot plus starts and pack read once.
 //
+// multi_cumsum replaces scan_kernel.py::_cumsum_kernel (wrapper
+// multi_cumsum): the inclusive float32 cumsum of n equal-length rows, with
+// a Neumaier-compensated carry between 4096-element blocks, so each
+// element's error stays at within-block scale instead of growing with the
+// running total (segment differences of the cumsum expose that error, see
+// rasterize._segsum_reduce). The TPU kernel carried (sum, compensation)
+// across a sequential grid; here it is the aggregate-then-fold design of
+// expand_scan: launch 1 scans every (row, block) and stores the block's
+// total; launch 2 has warp 0 of each block fold the compensated sum of the
+// totals before it (each lane folds a strided share, the lanes combine in
+// a fixed tree), then scans its own block and adds the carry. Bound:
+// bytes, 8 B per element (one float read, one written); launch 2 reads the
+// input a second time.
+//
 // Plain C interface: pointers and the stream come from the binding; each
 // launcher returns cudaGetLastError() so a refused launch is reported.
 
@@ -195,7 +209,123 @@ __global__ void merge_expand_kernel(const int* __restrict__ starts,
   rank_out[d] = g + 1;
 }
 
+// ---- multi_cumsum
+
+__device__ __forceinline__ float warp_inclusive_sum(float v, int lane) {
+#pragma unroll
+  for (int off = 1; off < 32; off <<= 1) {
+    float u = __shfl_up_sync(kFull, v, off);
+    if (lane >= off) v += u;
+  }
+  return v;
+}
+
+// Scans block `blk` of row x (length k); returns the block's total (valid
+// in every thread) and leaves each element's block-local inclusive sum,
+// less the totals of the warps before its own, in vals[].
+__device__ __forceinline__ float scan_block_f32(const float* x, long long k,
+                                                long long blk,
+                                                float (&vals)[kScanItems],
+                                                float* warp_tot) {
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  const long long warp_base =
+      blk * kScanTile + (long long)warp * 32 * kScanItems;
+  float run = 0.0f;
+#pragma unroll
+  for (int i = 0; i < kScanItems; ++i) {
+    const long long idx = warp_base + 32 * i + lane;
+    float v = idx < k ? x[idx] : 0.0f;
+    v = warp_inclusive_sum(v, lane) + run;
+    vals[i] = v;
+    run = __shfl_sync(kFull, v, 31);
+  }
+  if (lane == 0) warp_tot[warp] = run;
+  __syncthreads();
+  float total = 0.0f;
+  for (int w = 0; w < kScanWarps; ++w) total += warp_tot[w];
+  return total;
+}
+
+// Neumaier sum of (hi, lo) pairs: hi carries the sum, lo the compensation
+__device__ __forceinline__ void neumaier_add(float& hi, float& lo, float y) {
+  const float t = hi + y;
+  lo += fabsf(hi) >= fabsf(y) ? (hi - t) + y : (y - t) + hi;
+  hi = t;
+}
+
+__global__ void __launch_bounds__(kScanThreads)
+cumsum_reduce_kernel(const float* __restrict__ x, long long k,
+                     float* __restrict__ totals) {
+  __shared__ float warp_tot[kScanWarps];
+  const long long row = blockIdx.y;
+  float vals[kScanItems];
+  const float total =
+      scan_block_f32(x + row * k, k, blockIdx.x, vals, warp_tot);
+  if (threadIdx.x == 0) totals[row * gridDim.x + blockIdx.x] = total;
+}
+
+__global__ void __launch_bounds__(kScanThreads)
+cumsum_scan_kernel(const float* __restrict__ x, long long k,
+                   const float* __restrict__ totals, float* __restrict__ out) {
+  __shared__ float warp_tot[kScanWarps];
+  __shared__ float s_carry;
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  const long long row = blockIdx.y;
+  const long long blk = blockIdx.x;
+
+  // 1. Compensated sum of the totals of blocks [0, blk) of this row.
+  if (warp == 0) {
+    const float* tot = totals + row * gridDim.x;
+    float hi = 0.0f, lo = 0.0f;
+    for (long long j = lane; j < blk; j += 32) neumaier_add(hi, lo, tot[j]);
+#pragma unroll
+    for (int off = 16; off > 0; off >>= 1) {
+      const float o_hi = __shfl_down_sync(kFull, hi, off);
+      const float o_lo = __shfl_down_sync(kFull, lo, off);
+      neumaier_add(hi, lo, o_hi);
+      lo += o_lo;
+    }
+    if (lane == 0) s_carry = hi + lo;
+  }
+
+  // 2. Scan this block and add the warps before, then the carry.
+  float vals[kScanItems];
+  scan_block_f32(x + row * k, k, blk, vals, warp_tot);
+  float prefix = 0.0f;
+  for (int w = 0; w < warp; ++w) prefix += warp_tot[w];
+  const float carry = s_carry;  // written before scan_block_f32's barrier
+  const long long warp_base =
+      blk * kScanTile + (long long)warp * 32 * kScanItems;
+  float* o = out + row * k;
+#pragma unroll
+  for (int i = 0; i < kScanItems; ++i) {
+    const long long idx = warp_base + 32 * i + lane;
+    if (idx < k) o[idx] = (prefix + vals[i]) + carry;
+  }
+}
+
 }  // namespace
+
+extern "C" int gsplat_cumsum_blocks(long long k) {
+  return (int)((k + kScanTile - 1) / kScanTile);
+}
+
+// x, out: [n, k] row-major; totals: scratch of n * gsplat_cumsum_blocks(k)
+extern "C" int gsplat_multi_cumsum(const float* x, int n, long long k,
+                                   float* totals, float* out,
+                                   cudaStream_t stream) {
+  const int blocks = gsplat_cumsum_blocks(k);
+  if (blocks == 0 || n == 0) return 0;
+  if (n > 65535) return (int)cudaErrorInvalidValue;
+  const dim3 grid(blocks, n);
+  cumsum_reduce_kernel<<<grid, kScanThreads, 0, stream>>>(x, k, totals);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  cumsum_scan_kernel<<<grid, kScanThreads, 0, stream>>>(x, k, totals, out);
+  return (int)cudaGetLastError();
+}
 
 extern "C" int gsplat_expand_scan_tiles(long long k) {
   return (int)((k + kScanTile - 1) / kScanTile);

@@ -1,6 +1,5 @@
 """Self-contained PLY IO (no plyfile dependency); numpy only, a copy of
-gsplat_tpu/data/ply.py (gaussian models; the point-cloud helpers are not
-needed by the port yet).
+gsplat_tpu/data/ply.py.
 
 Byte-compatible with the reference's two PLY layouts so models/point clouds
 interop with existing viewers and pipelines:
@@ -89,6 +88,30 @@ def write_ply(path: str, names: list[str], columns: list[np.ndarray]) -> None:
     with open(path, "wb") as f:
         f.write(("\n".join(lines) + "\n").encode("ascii"))
         f.write(arr.tobytes())
+
+
+# ---------------- point clouds (dataset_readers.py:117-140) ----------------
+
+def store_point_cloud(path: str, xyz: np.ndarray, rgb255: np.ndarray) -> None:
+    normals = np.zeros_like(xyz, dtype=np.float32)
+    write_ply(path,
+              ["x", "y", "z", "nx", "ny", "nz", "red", "green", "blue"],
+              [xyz[:, 0].astype(np.float32), xyz[:, 1].astype(np.float32),
+               xyz[:, 2].astype(np.float32),
+               normals[:, 0], normals[:, 1], normals[:, 2],
+               rgb255[:, 0].astype(np.uint8), rgb255[:, 1].astype(np.uint8),
+               rgb255[:, 2].astype(np.uint8)])
+
+
+def fetch_point_cloud(path: str):
+    """(xyz [N, 3] f32, rgb [N, 3] f32 in [0, 1], normals [N, 3])."""
+    v = read_ply(path)
+    xyz = np.stack([v["x"], v["y"], v["z"]], axis=1).astype(np.float32)
+    rgb = np.stack([v["red"], v["green"], v["blue"]], axis=1).astype(
+        np.float32) / 255.0
+    normals = (np.stack([v["nx"], v["ny"], v["nz"]], axis=1).astype(
+        np.float32) if "nx" in v else np.zeros_like(xyz))
+    return xyz, rgb, normals
 
 
 # ------------- gaussian models (gaussian_model_static.py:228-296) -----------

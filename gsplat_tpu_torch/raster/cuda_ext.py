@@ -16,7 +16,8 @@ import pathlib
 
 _PKG = pathlib.Path(__file__).resolve().parents[1]
 CSRC = _PKG / "csrc"
-SOURCES = ("binding.cpp", "scan_kernels.cu", "render_kernel.cu")
+SOURCES = ("binding.cpp", "scan_kernels.cu", "render_kernel.cu",
+           "blend_kernels.cu")
 BUILD_DIR = _PKG.parent / "build" / "torch_kernels"
 CUDA_FLAGS = ("-O3", "-gencode=arch=compute_90a,code=sm_90a")
 

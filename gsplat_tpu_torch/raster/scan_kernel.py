@@ -1,5 +1,6 @@
-"""Owner-expansion kernels for binning (port of
-gsplat_tpu/raster/scan_kernel.py: ``expand_scan`` and ``merge_expand``).
+"""Scan kernels (port of gsplat_tpu/raster/scan_kernel.py): the
+owner-expansion kernels of binning, ``expand_scan`` and ``merge_expand``,
+and the compensated ``multi_cumsum`` of the gradient reduction.
 
 Each public function is a wrapper: a CUDA tensor launches the hand-written
 Hopper kernel in ``csrc/scan_kernels.cu`` (and adds one to the wrapper's
@@ -14,6 +15,10 @@ it. The source notes in the .cu file give each kernel's bound and design.
   is the last g with ``starts[g] <= d`` (``starts`` ascending); returns
   ``pack[g]``, ``starts[g]`` and ``g + 1`` (all 0 where no start is <= d).
   Slots at or past the duplicate count are dead: callers mask them.
+- ``multi_cumsum`` replaces ``scan_kernel._cumsum_kernel``: the inclusive
+  float32 cumsum of each row of an [n, K] array, with a compensated carry
+  between 4096-element blocks so each element's error stays at
+  within-block scale.
 """
 
 from __future__ import annotations
@@ -103,3 +108,41 @@ def merge_expand(starts: torch.Tensor, pack: torch.Tensor, k: int):
 
 
 merge_expand.launches = 0
+
+
+CUMSUM_BLOCK = 4096  # elements per block of the compensated carry
+
+
+def multi_cumsum_plain(x: torch.Tensor) -> torch.Tensor:
+    """Plain PyTorch version of ``multi_cumsum``: the same blocks, each
+    scanned on its own, plus the exclusive sum of the block totals carried
+    in float64 (at least as exact as the kernel's compensated carry)."""
+    n, k = x.shape
+    nb = -(-k // CUMSUM_BLOCK)
+    xp = torch.zeros(n, nb * CUMSUM_BLOCK, dtype=torch.float32,
+                     device=x.device)
+    xp[:, :k] = x
+    scanned = torch.cumsum(xp.view(n, nb, CUMSUM_BLOCK), dim=2)
+    tot = scanned[:, :, -1].double()
+    carry = (torch.cumsum(tot, dim=1) - tot).float()        # exclusive
+    return (scanned + carry[:, :, None]).reshape(n, -1)[:, :k]
+
+
+def multi_cumsum(x: torch.Tensor) -> torch.Tensor:
+    """Inclusive compensated cumsum of each row of ``x`` [n, K] float32."""
+    if x.dtype != torch.float32 or x.dim() != 2 or not x.is_contiguous():
+        raise ValueError(f"x: expected a contiguous [n, K] float32 tensor, "
+                         f"got {x.dtype} {tuple(x.shape)}")
+    if x.device.type == "cpu":
+        return multi_cumsum_plain(x)
+    ext = cuda_ext.load()
+    n, k = x.shape
+    totals = torch.empty(n * ext.cumsum_blocks(k), dtype=torch.float32,
+                         device=x.device)
+    out = torch.empty_like(x)
+    ext.multi_cumsum(x, totals, out)
+    multi_cumsum.launches += 1
+    return out
+
+
+multi_cumsum.launches = 0

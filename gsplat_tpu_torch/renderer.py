@@ -1,9 +1,10 @@
 """High-level render entry (port of gsplat_tpu/renderer.py: ``render``).
 
-Renders a GaussianState through the inference rasterizer with the settings
-the caller passes, and returns the same bundle as the JAX ``render``. The
-reference's python-side SH / covariance switches and ``deformable_render``
-are not ported yet.
+Renders a GaussianState through the rasterizer with the settings the
+caller passes (the inference path, or the training path when
+``settings.inference`` is False), and returns the same bundle as the JAX
+``render``. The reference's python-side SH / covariance switches and
+``deformable_render`` are not ported yet.
 """
 
 from __future__ import annotations
@@ -17,7 +18,7 @@ def render(camera: CameraParams, state: GaussianState, bg,
            settings: RasterizeSettings, sh_degree: int | None = None,
            scale_modifier: float = 1.0):
     """Render ``state`` from ``camera``; ``sh_degree`` defaults to the
-    model's max. ``settings.inference`` must be True."""
+    model's max."""
     deg = state.max_sh_degree if sh_degree is None else sh_degree
     out = rasterize(
         state.xyz, state.get_scaling(), state.get_rotation(),

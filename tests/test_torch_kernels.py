@@ -208,6 +208,124 @@ def test_render_forward_plain_matches_loop():
                                atol=1e-5)
 
 
+def blend_case(seed=0):
+    """``render_case`` as a float32 training stream, with row 3 of a
+    random cotangent pack for the backward."""
+    feat, meta, kw = render_case(seed)
+    rng = np.random.default_rng(seed + 1)
+    dpack = rng.normal(size=(kw["num_tiles"], 4, kw["n_pix"])).astype(
+        np.float32)
+    return feat, meta, dpack, kw
+
+
+def blend_loop(feat, meta, kw):
+    """The training blend written as the CUDA reference's per-pixel loop
+    (float32): (ct [T, 4, n_pix], used [K])."""
+    tx, n_pix, chunk = kw["tile_x"], kw["n_pix"], kw["chunk"]
+    f32 = np.float32
+    ct = np.zeros((kw["num_tiles"], 4, n_pix), f32)
+    used = np.zeros(feat.shape[1], np.int64)
+    for t in range(kw["num_tiles"]):
+        ox, oy = (t % kw["grid_x"]) * tx, (t // kw["grid_x"]) * kw["tile_y"]
+        chunks = [c for c in range(len(meta)) if meta[c] >> 2 == t]
+        T = np.ones(n_pix, f32)
+        done = np.zeros(n_pix, bool)
+        col = np.zeros((3, n_pix), f32)
+        px = (np.arange(n_pix) % tx).astype(f32)
+        py = (np.arange(n_pix) // tx).astype(f32)
+        for c in chunks:
+            for g in range(c * chunk, (c + 1) * chunk):
+                x, y, a, b, cc, opa = feat[:6, g]
+                dx, dy = px - (x - f32(ox)), py - (y - f32(oy))
+                power = f32(-0.5) * (a * dx * dx + cc * dy * dy) - b * dx * dy
+                alpha = np.minimum(f32(ttile.ALPHA_MAX), opa * np.exp(power))
+                alpha = np.where((power > 0) | (alpha < ttile.ALPHA_MIN),
+                                 f32(0), alpha).astype(f32)
+                t_next = T * (f32(1) - alpha)
+                live = (alpha > 0) & ~done
+                stop = live & (t_next < ttile.T_EPS)
+                hit = live & ~stop
+                col += feat[6:9, g, None] * np.where(hit, alpha * T, f32(0))
+                T = np.where(hit, t_next, T)
+                done |= stop
+                used[g] = hit.sum()
+            if done.all():
+                break
+        ct[t, :3], ct[t, 3] = col, T
+    return ct, used
+
+
+def test_tile_blend_forward_plain_matches_loop():
+    feat, meta, _, kw = blend_case()
+    want_ct, want_used = blend_loop(feat, meta, kw)
+    ct, used = ttile.tile_blend_forward(torch.from_numpy(feat),
+                                        torch.from_numpy(meta), **kw)
+    assert used.dtype == torch.int32
+    # tile 0 saturates: every pixel latched done inside its 3 chunks
+    assert want_ct[0, 3].max() < 0.05 and (want_used[2 * 16:3 * 16] == 0).all()
+    np.testing.assert_array_equal(used.numpy(), want_used)
+    np.testing.assert_allclose(ct.numpy(), want_ct, rtol=1e-5, atol=1e-6)
+    np.testing.assert_array_equal(ct[1].numpy(), np.r_[np.zeros((3, 32)),
+                                                       np.ones((1, 32))])
+
+
+def test_tile_blend_backward_plain_matches_autograd_of_loop():
+    """The plain backward against torch autograd through the per-pixel
+    loop written with differentiable ops (float64 for the reference)."""
+    feat, meta, dpack, kw = blend_case()
+    got = ttile.tile_blend_backward(torch.from_numpy(feat),
+                                    torch.from_numpy(meta),
+                                    torch.from_numpy(dpack), **kw)
+    ct, _ = blend_loop(feat, meta, kw)
+    f = torch.from_numpy(feat).double().requires_grad_(True)
+    tx, n_pix, chunk = kw["tile_x"], kw["n_pix"], kw["chunk"]
+    loss = 0.0
+    for t in range(kw["num_tiles"]):
+        ox, oy = (t % kw["grid_x"]) * tx, (t // kw["grid_x"]) * kw["tile_y"]
+        px = torch.arange(n_pix, dtype=torch.float64) % tx
+        py = torch.div(torch.arange(n_pix), tx, rounding_mode="floor")
+        T = torch.ones(n_pix, dtype=torch.float64)
+        done = torch.zeros(n_pix, dtype=torch.bool)
+        col = torch.zeros(3, n_pix, dtype=torch.float64)
+        for c in [c for c in range(len(meta)) if meta[c] >> 2 == t]:
+            for g in range(c * chunk, (c + 1) * chunk):
+                dx, dy = px - (f[0, g] - ox), py - (f[1, g] - oy)
+                power = (-0.5 * (f[2, g] * dx * dx + f[4, g] * dy * dy)
+                         - f[3, g] * dx * dy)
+                raw = f[5, g] * torch.exp(power)
+                # the 0.99 clamp passes the gradient through
+                alpha = raw - (raw - ttile.ALPHA_MAX).clamp(min=0).detach()
+                live = ((power <= 0) & (alpha >= ttile.ALPHA_MIN) & ~done)
+                t_next = T * (1 - alpha)
+                stop = live & (t_next < ttile.T_EPS)
+                hit = live & ~stop
+                col = col + f[6:9, g, None] * torch.where(hit, alpha * T, 0)
+                T = torch.where(hit, t_next, T)
+                done = done | stop
+            if bool(done.all()):
+                break
+        d = torch.from_numpy(dpack[t]).double()
+        loss = loss + (d[:3] * col).sum() + (d[3] * T).sum()
+    loss.backward()
+    want = f.grad.numpy()
+    # the plain backward reads D = <dC, C> + dT T from the forward's values
+    dp = dpack.copy()
+    dp[:, 3] = (dpack[:, :3] * ct[:, :3]).sum(1) + dpack[:, 3] * ct[:, 3]
+    got = ttile.tile_blend_backward(torch.from_numpy(feat),
+                                    torch.from_numpy(meta),
+                                    torch.from_numpy(dp), **kw).numpy()
+    scale = np.abs(want).max(axis=1, keepdims=True) + 1e-12
+    np.testing.assert_allclose(got / scale, want / scale, atol=2e-4)
+
+
+def test_multi_cumsum_plain_matches_float64():
+    rng = np.random.default_rng(8)
+    x = rng.normal(size=(3, 3 * 4096 + 77)).astype(np.float32) + 0.5
+    got = tscan.multi_cumsum(torch.from_numpy(x)).numpy()
+    np.testing.assert_allclose(got, np.cumsum(x, axis=1, dtype=np.float64),
+                               atol=2e-3, rtol=1e-5)
+
+
 def test_wrappers_reject_bad_inputs():
     i32 = torch.zeros(8, dtype=torch.int32)
     with pytest.raises(ValueError):
@@ -226,6 +344,13 @@ def test_wrappers_reject_bad_inputs():
         ttile.render_forward(feat, meta[:1], torch.zeros(3), n_pix=256, **kw)
     with pytest.raises(ValueError):
         ttile.render_forward(feat, meta, torch.zeros(3), n_pix=200, **kw)
+    with pytest.raises(ValueError):
+        ttile.tile_blend_forward(feat.float(), meta.long(), n_pix=256, **kw)
+    with pytest.raises(ValueError):
+        ttile.tile_blend_backward(feat.float(), meta,
+                                  torch.zeros(1, 3, 256), n_pix=256, **kw)
+    with pytest.raises(ValueError):
+        tscan.multi_cumsum(torch.zeros(9, 10, dtype=torch.float64))
 
 
 def test_extension_sources_and_flags():
@@ -305,3 +430,72 @@ def test_render_cuda_matches_cpu_port(cuda, tiles, k_dup, cap):
     assert torch.equal(got["radii"].cpu(), want["radii"])
     assert within_bf16_ulps(got["render"].float().cpu(),
                             want["render"].float())
+
+
+@pytest.mark.gpu
+def test_tile_blend_cuda_matches_plain(cuda):
+    """Blend forward and backward kernels against their plain versions on
+    the card (same expf, so the same threshold branches)."""
+    feat, meta, dpack, kw = blend_case()
+    f, m, d = (torch.from_numpy(a).to(cuda) for a in (feat, meta, dpack))
+    want_ct, want_used = ttile.tile_blend_forward_plain(f, m, **kw)
+    want_d = ttile.tile_blend_backward_plain(f, m, d, **kw)
+    before = (ttile.tile_blend_forward.launches,
+              ttile.tile_blend_backward.launches)
+    ct, used = ttile.tile_blend_forward(f, m, **kw)
+    dfeat = ttile.tile_blend_backward(f, m, d, **kw)
+    torch.cuda.synchronize()
+    assert (ttile.tile_blend_forward.launches,
+            ttile.tile_blend_backward.launches) == (before[0] + 1,
+                                                    before[1] + 1)
+    assert torch.equal(used, want_used)
+    assert float((ct - want_ct).abs().max()) <= 1e-5
+    scale = want_d.abs().amax(dim=1, keepdim=True) + 1e-12
+    assert float(((dfeat - want_d) / scale).abs().max()) <= 1e-4
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("k", [77, 4096, 3 * 4096 + 511, (1 << 20) + 3])
+def test_multi_cumsum_cuda_matches_plain(cuda, k):
+    rng = np.random.default_rng(k)
+    x = torch.from_numpy(rng.normal(size=(9, k)).astype(np.float32) + 0.5)
+    want = torch.cumsum(x.double(), dim=1)
+    got = tscan.multi_cumsum(x.to(cuda))
+    torch.cuda.synchronize()
+    err = (got.cpu().double() - want).abs()
+    assert bool((err <= 2e-3 + 1e-5 * want.abs()).all()), float(err.max())
+    plain = tscan.multi_cumsum_plain(x.to(cuda)).cpu().double()
+    assert bool(((got.cpu().double() - plain).abs()
+                 <= 2e-3 + 1e-5 * plain.abs()).all())
+
+
+@pytest.mark.gpu
+def test_training_rasterize_cuda_matches_cpu_port(cuda):
+    """The training path on the card (blend kernels, scatter-add
+    reduction) against the port on the CPU: image, T, is_used, grads."""
+    outs = []
+    for dev in ("cpu", cuda):
+        state, cam, settings = torch_scene(device=dev)
+        settings = trasterize.RasterizeSettings(k_dup=1536, tile_x=16,
+                                                tile_y=16)
+        params = {k: v.detach().clone().requires_grad_(True)
+                  for k, v in state.params().items()}
+        s = state.replace_params(params)
+        out = trasterize.rasterize(
+            s.xyz, s.get_scaling(), s.get_rotation(), s.get_opacity()[:, 0],
+            s.get_features(), cam, 1, torch.tensor(BG, device=dev), settings,
+            alive=s.alive_mask)
+        w = torch.linspace(-1, 1, out.image.numel(), device=dev)
+        loss = (out.image.reshape(-1) * w).sum() + out.final_t.sum()
+        grads = torch.autograd.grad(loss, list(params.values()))
+        outs.append((out, [g.cpu() for g in grads]))
+    (co, cg), (go, gg) = outs
+    torch.cuda.synchronize()
+    assert torch.equal(go.is_used.cpu(), co.is_used)
+    assert float((go.image.detach().cpu() - co.image.detach()).abs().max()
+                 ) <= 5e-5
+    assert float((go.final_t.detach().cpu() - co.final_t.detach()).abs(
+        ).max()) <= 5e-5
+    for a, b in zip(gg, cg):
+        assert bool(torch.isfinite(a).all())
+        assert float((a - b).abs().max()) <= 2e-3 * float(b.abs().max())

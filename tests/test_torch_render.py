@@ -161,10 +161,21 @@ def test_inference_matches_jax_training_path(renders):
 
 
 def test_training_path_not_ported_yet():
-    _, ts, _, tc, _, ts_set = scene("expand_16x16")
-    with pytest.raises(NotImplementedError, match="training slice"):
-        trenderer.render(tc, ts, BG, dataclasses.replace(ts_set,
-                                                         inference=False))
+    """The training slice ported the path this test once saw refused:
+    ``renderer.render`` with ``inference=False`` now goes through the
+    training blend and matches JAX's training render (interpret mode)."""
+    js, ts, jc, tc, js_set, ts_set = scene("expand_16x16")
+    got = trenderer.render(tc, ts, BG, dataclasses.replace(ts_set,
+                                                           inference=False))
+    want = jrenderer.render(jc, js, jnp.asarray(BG),
+                            dataclasses.replace(js_set, inference=False))
+    assert got["render"].dtype == torch.float32
+    np.testing.assert_allclose(got["render"].numpy(),
+                               np.asarray(want["render"]), atol=5e-5)
+    np.testing.assert_allclose(got["final_t"].numpy(),
+                               np.asarray(want["final_t"]), atol=5e-5)
+    np.testing.assert_array_equal(got["is_used"].numpy(),
+                                  np.asarray(want["is_used"]))
 
 
 def test_slot_features_round_global_xy_to_bf16():
