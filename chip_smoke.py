@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
 """On-card smoke test of gsplat_tpu_torch (one NVIDIA GPU): the serving
-path and the static training path.
+path, the static training path and SwinGS training and playback.
 
 Run from the root of a checkout:  python3 chip_smoke.py
 
@@ -19,7 +19,12 @@ It builds the CUDA kernels from gsplat_tpu_torch/csrc, then
     1m-1296x840   1M Gaussians with trained-scene opacity/scale
                   statistics, 4 cameras; the reduction is sort +
                   multi_cumsum (P > 250k rows)
-  both binning through merge_expand.
+  both binning through merge_expand;
+- trains in bench.py's SwinGS setting (bench.py:432-493, its draws
+  continued): 200k immature rows + a 200k-row matured ring (a 400k-row
+  union), swin 8, SH 1, deform, 1280x720, 4 cameras; merge_expand and the
+  multi_cumsum reduction; then slides the window and runs the SwinGS CLI
+  and its stream playback on the committed dynamic fixture.
 
 Phases, one JSON line each; any failure raises and exits non-zero before
 the result line is printed:
@@ -29,7 +34,9 @@ the result line is printed:
                kernel inputs captured from the first camera of each setting
   kernel       each serving kernel against its plain PyTorch version on
                those inputs: expand_scan and merge_expand bit-equal, the
-               render within two bf16 ULPs; CUDA-event times of both
+               render within two bf16 ULPs; CUDA-event times of both; and
+               multi_cummax (on no path) bit-equal to torch.cummax at
+               3 x 8M, beside torch.cummax's time
   small        a 300-Gaussian scene rendered on the card vs the port on
                the CPU
   serve        per setting, launch counts zeroed, its 8 cameras rendered
@@ -38,11 +45,12 @@ the result line is printed:
                requests; reply bytes must equal the in-process image
   fps          frames/s over 3 windows of 48 frames per setting
   quality      the served frame vs the plain render of an f32 stream
-  train_probe  per training setting: num_dup per camera against the TPU
-               record (rel <= 1e-3, bench.py's gate), the probed k_dup
+  train_probe  per training setting (swin too, at frame 0): num_dup per
+               camera against the TPU record (rel <= 1e-3, bench.py's
+               gate), the probed k_dup
   kernel       the blend forward and backward and multi_cumsum against
                their plain versions on the inputs of each setting's first
-               step (forward: colour and T within 1e-5, used > 0 per slot
+               step (and merge_expand at the swin setting's) (forward: colour and T within 1e-5, used > 0 per slot
                identical; backward: each dfeat row within 1e-4 of its max;
                multi_cumsum: 2e-3 + 1e-5 |x| of a float64 cumsum); times
   kernel_yardstick  merge_expand beside torch.searchsorted per setting
@@ -56,9 +64,22 @@ the result line is printed:
   cli          python -m gsplat_tpu_torch.train.train_static on the
                committed Blender fixture (300 iterations), held-out PSNR
                >= 21.0 dB
+  swin_train   counts zeroed: one warm step and 3 windows of 10 fused
+               swin steps (frame it % 8, camera it % 4), one blend
+               forward, blend backward, merge_expand and multi_cumsum a
+               step and nothing else
+  swin_slide   decay_genesis -> tick -> evolve (ring + stream_dump +
+               rollover) -> densify -> one window of steps in the new
+               window; matured rows active and rendered, records = matured
+  swin_cli     train_swin.main on the dynamic fixture (the flags of
+               tests/test_stream_semantic.py), stream playback vs the
+               direct render (>= 24 dB) and vs GT (>= 15 dB), then
+               render_stream.main: one render and one owner expansion a
+               view
   profile      device time by kernel, serving, after every unprofiled
                timing; the idle share against the unprofiled frame time
   train_profile  the same for 3 training steps per setting
+  swin_profile   the same for 3 swin steps
 
 Then the card's name and power limit (nvidia-smi), the kernels line and
 {"ok": true, "device": {...}} as the last line. Exits non-zero with no
@@ -300,26 +321,7 @@ def check_kernels(cap, card_name):
     log("kernel", card=card_name, **out["expand_scan"])
 
     (starts, pack, kk), _ = cap["merge_expand"]
-    got = scan_kernel.merge_expand(starts, pack, kk)
-    want = scan_kernel.merge_expand_plain(starts, pack, kk)
-    torch.cuda.synchronize()
-    err = max(int((g - w).abs().max()) for g, w in zip(got, want))
-    if not all(torch.equal(g, w) for g, w in zip(got, want)):
-        raise AssertionError(f"merge_expand differs from plain: {err}")
-    p = starts.shape[0]
-    nbytes = 8 * p + 12 * kk   # starts + pack read once, 3 int32 out
-    ops = kk * max(1, math.ceil(math.log2(p + 1)))  # binary-search steps
-    out["merge_expand"] = dict(
-        name="merge_expand", route="cuda",
-        source="gsplat_tpu_torch/csrc/scan_kernels.cu",
-        replaces="gsplat_tpu/raster/scan_kernel.py:260",
-        max_abs_err=float(err),
-        ms=cuda_ms(lambda: scan_kernel.merge_expand(starts, pack, kk), 20),
-        plain_ms=cuda_ms(lambda: scan_kernel.merge_expand_plain(
-            starts, pack, kk), 5),
-        **dict(zip(("bound_ms", "bound_by"), bound(nbytes, ops))),
-        library_ms=searchsorted_ms(starts, kk), shape=f"P={p} K={kk}")
-    log("kernel", card=card_name, **out["merge_expand"])
+    out["merge_expand"] = check_merge_expand(starts, pack, kk, card_name)
 
     args, kw = cap["render_forward"]
     feat, meta, bg = args[:3]
@@ -355,6 +357,73 @@ def check_kernels(cap, card_name):
               f"visited_chunks={visited}")
     log("kernel", card=card_name, **out["render_forward"])
     return out
+
+
+def check_merge_expand(starts, pack, kk, card_name, **extra):
+    """merge_expand bit-equal to its plain version on main-path inputs;
+    returns its kernels-line entry."""
+    import torch
+
+    from gsplat_tpu_torch.raster import scan_kernel
+
+    got = scan_kernel.merge_expand(starts, pack, kk)
+    want = scan_kernel.merge_expand_plain(starts, pack, kk)
+    torch.cuda.synchronize()
+    err = max(int((g - w).abs().max()) for g, w in zip(got, want))
+    if not all(torch.equal(g, w) for g, w in zip(got, want)):
+        raise AssertionError(f"merge_expand differs from plain: {err}")
+    p = starts.shape[0]
+    nbytes = 8 * p + 12 * kk   # starts + pack read once, 3 int32 out
+    ops = kk * max(1, math.ceil(math.log2(p + 1)))  # binary-search steps
+    entry = dict(
+        name="merge_expand", route="cuda",
+        source="gsplat_tpu_torch/csrc/scan_kernels.cu",
+        replaces="gsplat_tpu/raster/scan_kernel.py:260",
+        max_abs_err=float(err),
+        ms=cuda_ms(lambda: scan_kernel.merge_expand(starts, pack, kk), 20),
+        plain_ms=cuda_ms(lambda: scan_kernel.merge_expand_plain(
+            starts, pack, kk), 5),
+        **dict(zip(("bound_ms", "bound_by"), bound(nbytes, ops))),
+        library_ms=searchsorted_ms(starts, kk), shape=f"P={p} K={kk}",
+        **extra)
+    log("kernel", card=card_name, **entry)
+    return entry
+
+
+CUMMAX_SHAPE = (3, 8_000_000)
+
+
+def check_multi_cummax(card_name):
+    """multi_cummax (on no path of the system) bit-equal to torch.cummax
+    per row at n = 3, K = 8M, values drawn from numpy's generator at seed
+    0, INT_MIN in a prefix of row 0 (the TPU wrapper's padding value)."""
+    import torch
+
+    from gsplat_tpu_torch.raster import scan_kernel
+
+    n, k = CUMMAX_SHAPE
+    rng = np.random.default_rng(0)
+    host = rng.integers(-2**31, 2**31, size=(n, k), dtype=np.int64)
+    host[0, :4096 + 77] = -2**31
+    x = torch.as_tensor(host.astype(np.int32), device=DEVICE)
+    got = scan_kernel.multi_cummax(x)
+    want = scan_kernel.multi_cummax_plain(x)
+    torch.cuda.synchronize()
+    err = int((got.long() - want.long()).abs().max())
+    if not torch.equal(got, want):
+        raise AssertionError(f"multi_cummax differs from plain: {err}")
+    entry = dict(
+        name="multi_cummax", route="cuda",
+        source="gsplat_tpu_torch/csrc/scan_kernels.cu",
+        replaces="gsplat_tpu/raster/scan_kernel.py:66",
+        max_abs_err=float(err),
+        ms=cuda_ms(lambda: scan_kernel.multi_cummax(x), 20),
+        plain_ms=cuda_ms(lambda: scan_kernel.multi_cummax_plain(x), 20),
+        bound_ms=2 * n * k * 4 / MEM_BPS * 1e3, bound_by="bytes",
+        library_ms=cuda_ms(lambda: torch.cummax(x, dim=1), 20),
+        shape=f"n={n} K={k}")
+    log("kernel", card=card_name, **entry)
+    return entry
 
 
 def check_small(card_name):
@@ -677,7 +746,7 @@ def build_training(card_name):
             k_dup=settings.k_dup, tpu_k_dup=cfg["tpu_k_dup"],
             gt_means=[round(float(g.mean()), 5) for g in gts],
             seconds=time.time() - t0)
-    return out
+    return out, rng
 
 
 class _ExtProxy:
@@ -1062,11 +1131,36 @@ def train_setting(name, st, wrappers, card_name):
     return launches, statistics.median(ms), state, adam
 
 
-def profile_train(name, st, state, adam, step_ms, card_name):
-    """Device time by kernel over 3 fused steps; the idle share sets the
-    device busy time against the unprofiled step time."""
+def profile_steps(phase, setting, run, step_ms, card_name, n=3):
+    """Device time by kernel over ``n`` calls of ``run(i)`` (one step
+    each); the idle share sets the device busy time against the
+    unprofiled step time."""
     import torch
     from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for i in range(n):
+            run(i)
+        torch.cuda.synchronize()
+    rows = []
+    for e in prof.key_averages():
+        dev_us = getattr(e, "self_device_time_total", 0) or 0
+        if str(getattr(e, "device_type", "")).endswith("CUDA") and dev_us:
+            rows.append((dev_us / 1e3 / n, e.count // n, e.key[:70]))
+    rows.sort(reverse=True)
+    busy = sum(r[0] for r in rows)
+    log(phase, card=card_name, setting=setting, step_ms=step_ms,
+        device_busy_ms_per_step=busy if rows else "not measured",
+        idle_share=(1 - busy / step_ms) if rows else "not measured",
+        kernels_per_step=sum(r[1] for r in rows),
+        top=[{"kernel": k, "ms_per_step": round(ms, 4), "calls": c}
+             for ms, c, k in rows[:16]])
+
+
+def profile_train(name, st, state, adam, step_ms, card_name):
+    """Device time by kernel over 3 fused static steps."""
+    import torch
 
     from gsplat_tpu_torch.train import step as step_lib
     from gsplat_tpu_torch.train.config import OptimizationConfig
@@ -1076,27 +1170,14 @@ def profile_train(name, st, state, adam, step_ms, card_name):
     gen = torch.Generator(device=DEVICE)
     gen.manual_seed(1)
     bg = torch.zeros(3, device=DEVICE)
-    n = 3
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        for i in range(n):
-            state, adam, m = step(state, adam, gen, st["cams"][i % 4],
-                                  st["gts"][i % 4], bg, 100.0 + i,
-                                  SH_DEGREE)
-        torch.cuda.synchronize()
-    rows = []
-    for e in prof.key_averages():
-        dev_us = getattr(e, "self_device_time_total", 0) or 0
-        if str(getattr(e, "device_type", "")).endswith("CUDA") and dev_us:
-            rows.append((dev_us / 1e3 / n, e.count // n, e.key[:70]))
-    rows.sort(reverse=True)
-    busy = sum(r[0] for r in rows)
-    log("train_profile", card=card_name, setting=name, step_ms=step_ms,
-        device_busy_ms_per_step=busy if rows else "not measured",
-        idle_share=(1 - busy / step_ms) if rows else "not measured",
-        kernels_per_step=sum(r[1] for r in rows),
-        top=[{"kernel": k, "ms_per_step": round(ms, 4), "calls": c}
-             for ms, c, k in rows[:16]])
+    carry = [state, adam]
+
+    def run(i):
+        carry[0], carry[1], _ = step(carry[0], carry[1], gen,
+                                     st["cams"][i % 4], st["gts"][i % 4], bg,
+                                     100.0 + i, SH_DEGREE)
+
+    profile_steps("train_profile", name, run, step_ms, card_name)
 
 
 def cli_phase(card_name):
@@ -1147,6 +1228,353 @@ def cli_phase(card_name):
     log("cli", card=card_name, iterations=300, seconds=seconds,
         heldout_psnr_db=mean, per_view_db=psnrs,
         n_alive=state.n_alive)
+
+
+# ---------------------------------------------------------------- swin ----
+
+# bench.py's SwinGS stage (bench.py:432-493): 200k immature rows and a
+# 200k-row matured ring (a 400k-row union), swin 8, SH degree 1, deform,
+# 1280x720, 4 orbit cameras, 64x16 tiles, spatial_lr_scale 4.0; num_dup /
+# k_dup are the TPU records of the same scene (BENCH_r05.json's tail).
+SWIN = dict(cap=200_000, sh=1, lifespan=8, width=1280, height=720, cams=4,
+            wit=10, tpu_num_dup=261_237, tpu_k_dup=313_600, frames=16)
+SWIN_NAME = "swin-200k-1280x720"
+DYN_FIXTURE = os.path.join(ROOT, "tests", "fixtures", "quality_cudaport_dyn")
+# tests/test_stream_semantic.py:45-54
+SWIN_CLI_FLAGS = ["--iterations", "150", "--genesis_iterations", "300",
+                  "--cap_max", "320", "--init_pts", "160", "--init_type",
+                  "sfm", "--max_frame", "4", "--swin_size", "2", "--deform",
+                  "--densify_from_iter", "20", "--densify_until_iter", "140",
+                  "--densification_interval", "30", "--test_iterations",
+                  "-1", "--save_iterations", "-1", "--dup_budget", "8192"]
+
+
+def build_swin(rng, k_gt, card_name):
+    """The swin setting: the ground truth (_make_scene(20k, 1, seed=1)
+    through the training path at the 100k setting's budget, as bench.py
+    renders it), the state from the next draws of bench.py's ``rng``, the
+    frame-0 probe of num_dup and the budget (headroom 1.2)."""
+    import dataclasses as dc
+
+    import torch
+
+    from gsplat_tpu_torch import renderer
+    from gsplat_tpu_torch.model import swin
+    from gsplat_tpu_torch.raster import rasterize as rast
+
+    t0 = time.time()
+    cfg = SWIN
+    bg = torch.zeros(3, device=DEVICE)
+    cams = orbit_cameras(cfg["cams"], cfg["width"], cfg["height"], DEVICE)
+    base = rast.RasterizeSettings(k_dup=k_gt, tile_x=TRAIN_TILE[0],
+                                  tile_y=TRAIN_TILE[1], chunk=128,
+                                  layout="chw")
+    scene = make_scene_params(TRAIN_P_GT, cfg["sh"], 1, DEVICE)
+    with torch.no_grad():
+        gts = [rast.rasterize(*scene, c, cfg["sh"], bg, base).image
+               for c in cams]
+    cap = cfg["cap"]
+    pts = rng.uniform(-1, 1, (cap, 3)).astype(np.float32)
+    cols = rng.uniform(0, 1, (cap, 3)).astype(np.float32)
+    state = swin.create_from_points(pts, cols, cap, cfg["sh"],
+                                    max_lifespan=cfg["lifespan"],
+                                    buffer_size=cap, deform=True,
+                                    device=DEVICE)
+    probe = dc.replace(base, k_dup=1 << 20, layout="hwc")
+    with torch.no_grad():
+        need = [int(renderer.deformable_render(c, state, 0.0, bg,
+                                               probe)["num_dup"])
+                for c in cams]
+    settings = dc.replace(probe, k_dup=probe_k_dup(max(need), 128,
+                                                   headroom=1.2))
+    rel = abs(max(need) - cfg["tpu_num_dup"]) / cfg["tpu_num_dup"]
+    if rel > DUP_REL_GATE:
+        raise AssertionError(f"swin: num_dup {max(need)} vs the TPU's "
+                             f"{cfg['tpu_num_dup']} (rel {rel:.2e})")
+    log("train_probe", card=card_name, setting=SWIN_NAME,
+        immature=state.im.n_alive, union_rows=2 * cap,
+        image=f"{cfg['width']}x{cfg['height']}", num_dup_per_camera=need,
+        num_dup_max=max(need), tpu_num_dup=cfg["tpu_num_dup"],
+        num_dup_rel=rel, k_dup=settings.k_dup, tpu_k_dup=cfg["tpu_k_dup"],
+        gt_means=[round(float(g.mean()), 5) for g in gts],
+        seconds=time.time() - t0)
+    return dict(cams=cams, gts=gts, state=state, settings=settings)
+
+
+def capture_swin(st):
+    """One fused swin step with its kernel inputs recorded (the state is
+    not advanced)."""
+    import torch
+
+    from gsplat_tpu_torch.model import optim
+    from gsplat_tpu_torch.raster import binning
+    from gsplat_tpu_torch.train import swin_step
+    from gsplat_tpu_torch.train.config import OptimizationConfig
+
+    store = {"blend_forward": [], "blend_backward": [], "multi_cumsum": []}
+    merge = []
+    step = swin_step.make_swin_train_step(OptimizationConfig(),
+                                          st["settings"], 4.0)
+    gen = torch.Generator(device=DEVICE)
+    gen.manual_seed(0)
+    with capture_ext(store), capture(binning, "merge_expand", merge):
+        step(st["state"], optim.init(st["state"].params()), gen,
+             st["cams"][0], st["gts"][0], torch.zeros(3, device=DEVICE),
+             1.0, 0.0, SWIN["sh"])
+    torch.cuda.synchronize()
+    cap = {k: v[0] for k, v in store.items() if v}
+    cap["merge_expand"] = merge[0][0]
+    return cap
+
+
+def swin_steps(step, state, adam, st, gen, windows, first_frame, it0):
+    """``windows`` x SWIN["wit"] fused steps, frame first_frame + it % 8,
+    camera it % 4; returns (state, adam, window ms/step, window losses,
+    max num_dup, iterations done)."""
+    import torch
+
+    bg = torch.zeros(3, device=DEVICE)
+    ms, losses, dups = [], [], []
+    it = it0
+    for _ in range(windows):
+        t0 = time.perf_counter()
+        for _ in range(SWIN["wit"]):
+            state, adam, m = step(
+                state, adam, gen, st["cams"][it % 4], st["gts"][it % 4], bg,
+                float(it + 2), float(first_frame + it % SWIN["lifespan"]),
+                SWIN["sh"])
+            dups.append(m.num_dup)
+            it += 1
+        losses.append(float(m.loss))     # synchronises
+        ms.append((time.perf_counter() - t0) * 1e3 / SWIN["wit"])
+    torch.cuda.synchronize()
+    return state, adam, ms, losses, max(int(d) for d in dups), it
+
+
+def swin_launches_ok(launches, steps, where):
+    """One blend forward, blend backward, merge_expand and multi_cumsum a
+    step, no other kernel."""
+    want = {k: 0 for k in launches}
+    want.update(tile_blend_forward=steps, tile_blend_backward=steps,
+                merge_expand=steps, multi_cumsum=steps)
+    if launches != want:
+        raise AssertionError(f"{where}: launches {launches}, expected {want}")
+
+
+def swin_train(st, wrappers, card_name):
+    """The swin setting's main path: counts zeroed, one warm step and 3
+    windows of 10 fused steps, counts read."""
+    import torch
+
+    from gsplat_tpu_torch.model import optim
+    from gsplat_tpu_torch.train import swin_step
+    from gsplat_tpu_torch.train.config import OptimizationConfig
+
+    settings = st["settings"]
+    step = swin_step.make_swin_train_step(OptimizationConfig(), settings,
+                                          4.0)
+    gen = torch.Generator(device=DEVICE)
+    gen.manual_seed(0)
+    state, adam = st["state"], optim.init(st["state"].params())
+    for w in wrappers.values():
+        w.launches = 0
+    state, adam, m = step(state, adam, gen, st["cams"][0], st["gts"][0],
+                          torch.zeros(3, device=DEVICE), 1.0, 0.0,
+                          SWIN["sh"])
+    torch.cuda.synchronize()
+    state, adam, ms, losses, max_dup, it = swin_steps(
+        step, state, adam, st, gen, 3, 0, 0)
+    launches = {k: w.launches for k, w in wrappers.items()}
+    steps = 1 + it
+    swin_launches_ok(launches, steps, "swin_train")
+    if not all(math.isfinite(x) for x in losses) or len(set(losses)) != 3:
+        raise AssertionError(f"swin_train: window losses {losses}")
+    if max_dup > settings.k_dup:
+        raise AssertionError(f"swin_train: num_dup {max_dup} > "
+                             f"{settings.k_dup}")
+    log("swin_train", card=card_name, setting=SWIN_NAME, steps=steps,
+        window_ms_per_step=ms, ms_per_step_median=statistics.median(ms),
+        it_per_s_median=1e3 / statistics.median(ms), window_losses=losses,
+        max_num_dup=max_dup, k_dup=settings.k_dup,
+        launches_per_step={k: v / steps for k, v in launches.items()},
+        peak_mem_gib=torch.cuda.max_memory_allocated() / 2 ** 30)
+    return launches, statistics.median(ms), state, adam, gen
+
+
+def swin_slide(st, state, adam, gen, wrappers, card_name):
+    """decay_genesis -> tick -> evolve (mature into the ring, stream_dump,
+    rollover) -> one densify (relocation over the window's 8 frames and
+    the genesis growth) -> one window of steps in the new window, counts
+    zeroed before it; then a render of the union at the new window's first
+    frame with the ring in it."""
+    import torch
+
+    from gsplat_tpu_torch import renderer
+    from gsplat_tpu_torch.model import swin
+    from gsplat_tpu_torch.train import swin_step
+    from gsplat_tpu_torch.train import train_swin
+    from gsplat_tpu_torch.train.config import OptimizationConfig
+    from gsplat_tpu_torch.utils.stream import SliWinManager, stream_load
+
+    cap, sh = SWIN["cap"], SWIN["sh"]
+    mgr = SliWinManager(SWIN["lifespan"], SWIN["frames"])
+    state = swin.decay_genesis(state)
+    mgr.tick()
+    dump_dir = os.path.join(WORK, "swin_stream")
+    dump = os.path.join(dump_dir, "streamable.dat")
+    if os.path.exists(dump):
+        os.remove(dump)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    state, adam = train_swin.evolve(state, adam, mgr, dump, sh)
+    torch.cuda.synchronize()
+    evolve_ms = (time.perf_counter() - t0) * 1e3
+    records = stream_load(os.path.join(dump_dir, "format.json"),
+                          dump)["xyz"].shape[0]
+    if not 0 < state.m_count == records:
+        raise AssertionError(f"swin_slide: matured {state.m_count}, "
+                             f"records {records}")
+    frames = list(mgr.all_frames())
+    ring_active = [int(swin.union_params_at(state, float(f))["alive"][cap:]
+                       .sum()) for f in frames]
+    if ring_active[0] == 0:
+        raise AssertionError(f"swin_slide: no matured row is active at "
+                             f"frame {frames[0]}: {ring_active}")
+    t0 = time.perf_counter()
+    state, adam = swin_step.make_swin_densify_step(cap, SWIN["lifespan"])(
+        state, adam, gen, float(mgr.frame_start), True)
+    torch.cuda.synchronize()
+    densify_ms = (time.perf_counter() - t0) * 1e3
+    step = swin_step.make_swin_train_step(OptimizationConfig(),
+                                          st["settings"], 4.0)
+    for w in wrappers.values():
+        w.launches = 0
+    state, adam, ms, losses, max_dup, steps = swin_steps(
+        step, state, adam, st, gen, 1, mgr.frame_start, 0)
+    launches = {k: w.launches for k, w in wrappers.items()}
+    swin_launches_ok(launches, steps, "swin_slide")
+    if not all(math.isfinite(x) for x in losses):
+        raise AssertionError(f"swin_slide: losses {losses}")
+    if max_dup > st["settings"].k_dup:
+        raise AssertionError(f"swin_slide: num_dup {max_dup} > "
+                             f"{st['settings'].k_dup}")
+    with torch.no_grad():
+        out = renderer.deformable_render(
+            st["cams"][0], state, float(mgr.frame_start),
+            torch.zeros(3, device=DEVICE), st["settings"])
+    ring_used = int(out["is_used"][cap:].sum())
+    if ring_used == 0:
+        raise AssertionError("swin_slide: the ring was not rendered")
+    log("swin_slide", card=card_name, setting=SWIN_NAME, window=str(mgr),
+        matured=state.m_count, stream_records=records,
+        ring_active_per_frame=dict(zip(frames, ring_active)),
+        ring_rows_rendered=ring_used, evolve_ms=evolve_ms,
+        densify_ms=densify_ms, immature_after=state.im.n_alive,
+        steps=steps, ms_per_step=ms, losses=losses, max_num_dup=max_dup)
+    return launches
+
+
+def swin_cli(wrappers, card_name):
+    """train_swin.main on a copy of the dynamic fixture with
+    tests/test_stream_semantic.py's flags, then playback: the stream vs the
+    direct deformable render of the final state (gate 24 dB) and vs the
+    ground truth (gate 15 dB) at that test's settings; then
+    render_stream.main on the inference path, counts zeroed before it."""
+    import shutil
+
+    import torch
+
+    from gsplat_tpu_torch.data.scene import DynamicScene
+    from gsplat_tpu_torch.eval import render_stream
+    from gsplat_tpu_torch.model import swin
+    from gsplat_tpu_torch.raster import rasterize as rast
+    from gsplat_tpu_torch.train import train_swin
+
+    data_dir = os.path.join(WORK, "swin_dyn")
+    out = os.path.join(WORK, "swin_cli_model")
+    for d in (data_dir, out):
+        shutil.rmtree(d, ignore_errors=True)
+    shutil.copytree(DYN_FIXTURE, data_dir)
+    t0 = time.time()
+    with open(os.path.join(WORK, "swin_cli.log"), "w") as lf, \
+            contextlib.redirect_stdout(lf):
+        state = train_swin.main(["-s", data_dir, "-m", out,
+                                 "--data_device", DEVICE] + SWIN_CLI_FLAGS)
+    seconds = time.time() - t0
+    data = render_stream.load_stream_state(out, DEVICE)
+    dyn = DynamicScene(data_dir, "", init_type="sfm", num_pts=8,
+                       max_frame=4, device=DEVICE)
+    settings = rast.RasterizeSettings(k_dup=8192, tile_x=16, tile_y=16,
+                                      chunk=128)
+    bg = torch.zeros(3, device=DEVICE)
+
+    def psnr_db(a, b):   # the test's: 1e-12 keeps identical views finite
+        return -10.0 * math.log10(float(((a - b) ** 2).mean()) + 1e-12)
+
+    vs_direct, vs_gt = [], []
+    with torch.no_grad():
+        for f in range(4):
+            union = swin.union_params_at(state, float(f))
+            for cam_obj in dyn.get_test_cams_at([f]):
+                camera, gt = cam_obj.load()
+                s_img = render_stream.render_stream_frame(
+                    data, camera, float(f), bg, settings)
+                d_img = rast.rasterize(
+                    union["means3d"], union["scales"], union["quats"],
+                    union["opacities"], union["shs"], camera,
+                    data["sh_degree"], bg, settings,
+                    alive=union["alive"]).image
+                vs_direct.append(psnr_db(s_img, torch.clamp(d_img, 0, 1)))
+                vs_gt.append(psnr_db(s_img, torch.as_tensor(
+                    np.clip(gt, 0, 1), device=DEVICE)))
+    dyn.close()
+    direct, vs_gt_mean = float(np.mean(vs_direct)), float(np.mean(vs_gt))
+    if not (direct >= 24.0 and vs_gt_mean >= 15.0):
+        raise AssertionError(f"swin_cli: stream vs direct {vs_direct} dB "
+                             f"(gate 24), vs GT {vs_gt} dB (gate 15)")
+    for w in wrappers.values():
+        w.launches = 0
+    with open(os.path.join(WORK, "swin_playback.log"), "w") as lf, \
+            contextlib.redirect_stdout(lf):
+        render_stream.main(["-m", out, "-s", data_dir, "--max_frame", "4",
+                            "--skip_train", "--data_device", DEVICE])
+    torch.cuda.synchronize()
+    launches = {k: w.launches for k, w in wrappers.items()}
+    views = len(os.listdir(os.path.join(out, "test", "stream", "renders")))
+    owner = launches["expand_scan"] + launches["merge_expand"]
+    others = sum(v for k, v in launches.items()
+                 if k not in ("expand_scan", "merge_expand", "render_forward"))
+    if (views != 4 or launches["render_forward"] != views or owner != views
+            or others):
+        raise AssertionError(f"swin_cli playback: {views} views, launches "
+                             f"{launches}")
+    log("swin_cli", card=card_name, seconds=seconds,
+        streamed=int(data["xyz"].shape[0]), immature=state.im.n_alive,
+        stream_vs_direct_db=direct, stream_vs_gt_db=vs_gt_mean,
+        per_view_vs_direct_db=vs_direct, per_view_vs_gt_db=vs_gt,
+        playback_views=views, playback_launches=launches)
+    return launches
+
+
+def profile_swin(st, state, adam, gen, step_ms, card_name):
+    """Device time by kernel over 3 fused swin steps."""
+    import torch
+
+    from gsplat_tpu_torch.train import swin_step
+    from gsplat_tpu_torch.train.config import OptimizationConfig
+
+    step = swin_step.make_swin_train_step(OptimizationConfig(),
+                                          st["settings"], 4.0)
+    bg = torch.zeros(3, device=DEVICE)
+    carry = [state, adam]
+
+    def run(i):
+        carry[0], carry[1], _ = step(carry[0], carry[1], gen,
+                                     st["cams"][i % 4], st["gts"][i % 4], bg,
+                                     200.0 + i, float(i % SWIN["lifespan"]),
+                                     SWIN["sh"])
+
+    profile_steps("swin_profile", SWIN_NAME, run, step_ms, card_name)
 
 
 def main() -> int:
@@ -1236,6 +1664,7 @@ def main() -> int:
 
     # ---- each kernel against its plain version
     kernels = check_kernels(cap, card_name)
+    kernels["multi_cummax"] = check_multi_cummax(card_name)
     check_small(card_name)
 
     # ---- serving main paths, launch counts zeroed just before each and
@@ -1309,9 +1738,16 @@ def main() -> int:
             served=images["expand"][0], card_name=card_name)
 
     # ---- training: settings, kernels vs plain, the golden replay
-    setups = build_training(card_name)
+    setups, rng = build_training(card_name)
     train_caps = capture_training(setups, card_name)
     train_kernels = check_training_kernels(train_caps, card_name)
+    # the swin setting continues bench.py's draws
+    swin_st = build_swin(rng, setups["100k-800x800"]["settings"].k_dup,
+                         card_name)
+    swin_cap = capture_swin(swin_st)
+    check_training_kernels({SWIN_NAME: swin_cap}, card_name)
+    check_merge_expand(*swin_cap["merge_expand"], card_name,
+                       setting=SWIN_NAME)
     for name, c in train_caps.items():
         starts_t, pack_t, k_t = c["merge_expand"]
         log("kernel_yardstick", card=card_name, setting=name,
@@ -1324,7 +1760,8 @@ def main() -> int:
     # ---- training main paths, counts zeroed before each setting
     wrappers.update(tile_blend_forward=tile_kernel.tile_blend_forward,
                     tile_blend_backward=tile_kernel.tile_blend_backward,
-                    multi_cumsum=scan_kernel.multi_cumsum)
+                    multi_cumsum=scan_kernel.multi_cumsum,
+                    multi_cummax=scan_kernel.multi_cummax)
     for name in ("tile_blend_forward", "tile_blend_backward",
                  "multi_cumsum"):
         kernels[name] = dict(train_kernels[name]["1m-1296x840"])
@@ -1332,11 +1769,21 @@ def main() -> int:
     for name, st in setups.items():
         train_launches[name], step_ms[name], *trained[name] = train_setting(
             name, st, wrappers, card_name)
-    for name in wrappers:
-        kernels[name]["launches"] = (
-            sum(n.get(name, 0) for n in launches.values())
-            + sum(n[name] for n in train_launches.values()))
     cli_phase(card_name)
+
+    # ---- the swin main paths, counts zeroed before each: training, the
+    # window slide, the CLI and its playback
+    swin_launches = {}
+    swin_launches["train"], swin_ms, *swin_trained = swin_train(
+        swin_st, wrappers, card_name)
+    swin_launches["slide"] = swin_slide(swin_st, *swin_trained, wrappers,
+                                        card_name)
+    swin_launches["cli"] = swin_cli(wrappers, card_name)
+    for name in wrappers:
+        kernels[name]["launches"] = sum(
+            n.get(name, 0) for group in (launches, train_launches,
+                                         swin_launches)
+            for n in group.values())
 
     # ---- device time by kernel, after every unprofiled timing
     for setting, fn in render_fns.items():
@@ -1344,6 +1791,7 @@ def main() -> int:
                        card_name)
     for name, st in setups.items():
         profile_train(name, st, *trained[name], step_ms[name], card_name)
+    profile_swin(swin_st, *swin_trained, swin_ms, card_name)
 
     log("done", card=card_name, seconds=time.time() - t_start)
     print(card_name)
@@ -1353,7 +1801,7 @@ def main() -> int:
                       "max_abs_vs_plain")}
         for name in ("expand_scan", "merge_expand", "render_forward",
                      "tile_blend_forward", "tile_blend_backward",
-                     "multi_cumsum")]}))
+                     "multi_cumsum", "multi_cummax")]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -36,6 +36,8 @@ int gsplat_blend_backward(const float* feat, long long k_slots,
 int gsplat_cumsum_blocks(long long k);
 int gsplat_multi_cumsum(const float* x, int n, long long k, float* totals,
                         float* out, cudaStream_t stream);
+int gsplat_multi_cummax(const int* x, int n, long long k, int* totals,
+                        int* out, cudaStream_t stream);
 }
 
 namespace {
@@ -125,6 +127,13 @@ void multi_cumsum(torch::Tensor x, torch::Tensor totals, torch::Tensor out) {
         "multi_cumsum");
 }
 
+void multi_cummax(torch::Tensor x, torch::Tensor totals, torch::Tensor out) {
+  check(gsplat_multi_cummax(x.data_ptr<int>(), static_cast<int>(x.size(0)),
+                            x.size(1), totals.data_ptr<int>(),
+                            out.data_ptr<int>(), stream()),
+        "multi_cummax");
+}
+
 }  // namespace
 
 PYBIND11_MODULE(TORCH_EXTENSION_NAME, m) {
@@ -136,4 +145,5 @@ PYBIND11_MODULE(TORCH_EXTENSION_NAME, m) {
   m.def("blend_backward", &blend_backward);
   m.def("cumsum_blocks", &cumsum_blocks);
   m.def("multi_cumsum", &multi_cumsum);
+  m.def("multi_cummax", &multi_cummax);
 }

@@ -34,6 +34,15 @@
 // bytes, 8 B per element (one float read, one written); launch 2 reads the
 // input a second time.
 //
+// multi_cummax replaces scan_kernel.py::_kernel (wrapper multi_cummax): the
+// inclusive int32 cummax of n equal-length rows. The TPU kernel carried each
+// row's running max across a sequential grid in SMEM; here it is
+// multi_cumsum's two launches with max in place of the sum and INT_MIN as
+// the identity (the TPU wrapper pads with INT_MIN). Max is exact and
+// associative, so the result is bit-equal to a sequential scan whatever
+// order the folds take, and no compensation is needed. Bound: bytes, 8 B per
+// element; launch 2 reads the input a second time.
+//
 // Plain C interface: pointers and the stream come from the binding; each
 // launcher returns cudaGetLastError() so a refused launch is reported.
 
@@ -306,6 +315,92 @@ cumsum_scan_kernel(const float* __restrict__ x, long long k,
   }
 }
 
+// ---- multi_cummax
+
+constexpr int kIntMin = -2147483647 - 1;  // identity of max
+
+__device__ __forceinline__ int warp_inclusive_max(int v, int lane) {
+#pragma unroll
+  for (int off = 1; off < 32; off <<= 1) {
+    const int u = __shfl_up_sync(kFull, v, off);
+    if (lane >= off) v = max(v, u);
+  }
+  return v;
+}
+
+// Scans block `blk` of row x (length k); returns the block's max (valid in
+// every thread) and leaves each element's warp-local inclusive max (over
+// the warp's 32 * kScanItems elements) in vals[].
+__device__ __forceinline__ int scan_block_max(const int* x, long long k,
+                                              long long blk,
+                                              int (&vals)[kScanItems],
+                                              int* warp_tot) {
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  const long long warp_base =
+      blk * kScanTile + (long long)warp * 32 * kScanItems;
+  int run = kIntMin;
+#pragma unroll
+  for (int i = 0; i < kScanItems; ++i) {
+    const long long idx = warp_base + 32 * i + lane;
+    int v = idx < k ? x[idx] : kIntMin;
+    v = max(warp_inclusive_max(v, lane), run);
+    vals[i] = v;
+    run = __shfl_sync(kFull, v, 31);
+  }
+  if (lane == 0) warp_tot[warp] = run;
+  __syncthreads();
+  int total = kIntMin;
+  for (int w = 0; w < kScanWarps; ++w) total = max(total, warp_tot[w]);
+  return total;
+}
+
+__global__ void __launch_bounds__(kScanThreads)
+cummax_reduce_kernel(const int* __restrict__ x, long long k,
+                     int* __restrict__ totals) {
+  __shared__ int warp_tot[kScanWarps];
+  const long long row = blockIdx.y;
+  int vals[kScanItems];
+  const int total = scan_block_max(x + row * k, k, blockIdx.x, vals, warp_tot);
+  if (threadIdx.x == 0) totals[row * gridDim.x + blockIdx.x] = total;
+}
+
+__global__ void __launch_bounds__(kScanThreads)
+cummax_scan_kernel(const int* __restrict__ x, long long k,
+                   const int* __restrict__ totals, int* __restrict__ out) {
+  __shared__ int warp_tot[kScanWarps];
+  __shared__ int s_carry;
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  const long long row = blockIdx.y;
+  const long long blk = blockIdx.x;
+
+  // 1. Max of the block maxima of blocks [0, blk) of this row.
+  if (warp == 0) {
+    const int* tot = totals + row * gridDim.x;
+    int m = kIntMin;
+    for (long long j = lane; j < blk; j += 32) m = max(m, tot[j]);
+#pragma unroll
+    for (int off = 16; off > 0; off >>= 1)
+      m = max(m, __shfl_down_sync(kFull, m, off));
+    if (lane == 0) s_carry = m;
+  }
+
+  // 2. Scan this block; fold in the warps before, then the carry.
+  int vals[kScanItems];
+  scan_block_max(x + row * k, k, blk, vals, warp_tot);
+  int prefix = s_carry;  // written before scan_block_max's barrier
+  for (int w = 0; w < warp; ++w) prefix = max(prefix, warp_tot[w]);
+  const long long warp_base =
+      blk * kScanTile + (long long)warp * 32 * kScanItems;
+  int* o = out + row * k;
+#pragma unroll
+  for (int i = 0; i < kScanItems; ++i) {
+    const long long idx = warp_base + 32 * i + lane;
+    if (idx < k) o[idx] = max(prefix, vals[i]);
+  }
+}
+
 }  // namespace
 
 extern "C" int gsplat_cumsum_blocks(long long k) {
@@ -324,6 +419,22 @@ extern "C" int gsplat_multi_cumsum(const float* x, int n, long long k,
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
   cumsum_scan_kernel<<<grid, kScanThreads, 0, stream>>>(x, k, totals, out);
+  return (int)cudaGetLastError();
+}
+
+// x, out: [n, k] row-major int32; totals: scratch of
+// n * gsplat_cumsum_blocks(k) int32 (the same 4096-element blocks)
+extern "C" int gsplat_multi_cummax(const int* x, int n, long long k,
+                                   int* totals, int* out,
+                                   cudaStream_t stream) {
+  const int blocks = gsplat_cumsum_blocks(k);
+  if (blocks == 0 || n == 0) return 0;
+  if (n > 65535) return (int)cudaErrorInvalidValue;
+  const dim3 grid(blocks, n);
+  cummax_reduce_kernel<<<grid, kScanThreads, 0, stream>>>(x, k, totals);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  cummax_scan_kernel<<<grid, kScanThreads, 0, stream>>>(x, k, totals, out);
   return (int)cudaGetLastError();
 }
 

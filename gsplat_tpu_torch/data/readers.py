@@ -1,14 +1,18 @@
-"""Scene readers (port of gsplat_tpu/data/readers.py: the Blender reader).
+"""Scene readers (port of gsplat_tpu/data/readers.py: the Blender and
+SwinGS readers).
 
 - ``read_blender_scene`` (readNerfSyntheticInfo, dataset_readers.py:
   247-281): transforms_{train,test}.json, OpenGL -> COLMAP axis flip,
   alpha over the background baked in, 100k random points in [-1.3, 1.3]^3
   when no points3d.ply exists;
+- ``read_dynamic_scene`` (readDynamicSceneInfo, :427-525): the SwinGS
+  layout images_per_frame/<t>/ + cam.json, per-frame train/test lists,
+  frames rebased to 0..span-1, sfm (sfm.bin) or random init;
 - ``nerfpp_norm`` (getNerfppNorm, :55-76), ``_random_init`` (:178-188) and
   ``detect_scene_type`` (scene/__init__.py:44-54).
 
-The COLMAP, Google Immersive and SwinGS readers come with later slices of
-the port; asking for them raises NotImplementedError.
+The COLMAP and Google Immersive readers come with later slices of the
+port; asking for them raises NotImplementedError.
 """
 
 from __future__ import annotations
@@ -16,13 +20,14 @@ from __future__ import annotations
 import dataclasses
 import json
 import os
+import random
 from typing import Callable, Dict, List, Optional
 
 import numpy as np
 
 from gsplat_tpu_torch.core import sh as sh_lib
 from gsplat_tpu_torch.core.camera import focal2fov, fov2focal, world_to_view
-from gsplat_tpu_torch.data import ply
+from gsplat_tpu_torch.data import colmap, ply
 from gsplat_tpu_torch.data.cameras import CameraInfo
 
 
@@ -32,6 +37,17 @@ class SceneInfo:
     colors: Optional[np.ndarray]
     train_cameras: List[CameraInfo]
     test_cameras: List[CameraInfo]
+    translate: np.ndarray
+    radius: float
+    ply_path: str
+
+
+@dataclasses.dataclass
+class DynamicSceneInfo:
+    points: Optional[np.ndarray]
+    colors: Optional[np.ndarray]
+    train_cam_at: List[List[CameraInfo]]  # per frame
+    test_cam_at: List[List[CameraInfo]]
     translate: np.ndarray
     radius: float
     ply_path: str
@@ -102,11 +118,100 @@ def read_blender_scene(path: str, white_background=False, eval_split=True,
     return SceneInfo(points, colors, train, test, translate, radius, ply_path)
 
 
+def _parse_cam_json(cams_para: dict) -> List[CameraInfo]:
+    """cam.json parsing shared by the Google and SwinGS layouts
+    (dataset_readers.py:284-323, 376-425)."""
+    infos = []
+    for cam_name, paras in cams_para.items():
+        extr, intr = paras["extrinsic"], paras["intrinsic"]
+        stem = cam_name.split(".")[0]
+        digits = "".join(ch for ch in stem if ch.isdigit())
+        uid = int(digits) if digits else 0
+        focal_x = intr["matrix"][0][0]
+        focal_y = intr["matrix"][1][1]
+        infos.append(CameraInfo(
+            uid=uid,
+            R=np.array(extr["SO3"]).T,
+            T=np.array(extr["T"]),
+            fovx=focal2fov(focal_x, intr["width"]),
+            fovy=focal2fov(focal_y, intr["height"]),
+            image_path=None, image_name=cam_name,
+            width=intr["width"], height=intr["height"],
+            extra_para={"cx": intr["matrix"][0][-1],
+                        "cy": intr["matrix"][1][-1],
+                        "focal_x": focal_x, "focal_y": focal_y}))
+    infos.sort(key=lambda c: c.image_name)
+    return infos
+
+
+def read_dynamic_scene(path: str, eval_split=True, llffhold: int = 8,
+                       init_type: str = "random", num_pts: int = 100_000,
+                       max_frame: int = 100, min_frame: int = 0,
+                       tempo_shuffle: bool = False) -> DynamicSceneInfo:
+    """SwinGS layout: images_per_frame/<t>/ + cam.json.
+
+    Frames ``min_frame..max_frame-1`` are loaded and rebased to
+    ``0..span-1`` (the reference's camera_utils.py:92), so sliding-window
+    lifespans always start at 0; image paths keep the frame number on
+    disk."""
+    if not 0 <= min_frame < max_frame:
+        raise ValueError(f"need 0 <= min_frame < max_frame, got "
+                         f"{min_frame}, {max_frame}")
+    with open(os.path.join(path, "cam.json")) as f:
+        cams_para = json.load(f)
+    reading_dir = "images_per_frame"
+    for t in range(min_frame, max_frame):
+        d = os.path.join(path, reading_dir, str(t))
+        if not os.path.exists(d):
+            raise FileNotFoundError(f"missing frame dir: {d}")
+
+    fixed = _parse_cam_json(cams_para)
+
+    def at_frame(c: CameraInfo, t: int) -> CameraInfo:
+        return dataclasses.replace(
+            c, uid=f"{t}.{c.uid}", frame=t - min_frame,
+            image_name=os.path.join(str(t), c.image_name),
+            image_path=os.path.join(path, reading_dir, str(t), c.image_name))
+
+    train_at, test_at = [], []
+    split = list(fixed)
+    if eval_split:
+        if tempo_shuffle:
+            random.seed(42)
+        for t in range(min_frame, max_frame):
+            if tempo_shuffle:
+                random.shuffle(split)
+            train_at.append([at_frame(c, t) for i, c in enumerate(split)
+                             if i % llffhold != 0])
+            test_at.append([at_frame(c, t) for i, c in enumerate(split)
+                            if i % llffhold == 0])
+    else:
+        for t in range(min_frame, max_frame):
+            train_at.append([at_frame(c, t) for c in split])
+            test_at.append([])
+
+    translate, radius = nerfpp_norm(train_at[0])
+    if init_type == "sfm":
+        ply_path = os.path.join(path, "sfm.ply")
+        xyz, rgb, _ = colmap.read_points3d_binary(os.path.join(path,
+                                                               "sfm.bin"))
+        ply.store_point_cloud(ply_path, xyz.astype(np.float32),
+                              rgb.astype(np.float32))
+        points, colors, _ = ply.fetch_point_cloud(ply_path)
+    elif init_type == "random":
+        ply_path = os.path.join(path, "random.ply")
+        points, colors = _random_init(num_pts, radius, ply_path)
+    else:
+        raise ValueError("init_type must be 'sfm' or 'random'")
+    return DynamicSceneInfo(points, colors, train_at, test_at, translate,
+                            radius, ply_path)
+
+
 def _later_slice(kind: str) -> Callable:
     def reader(*args, **kwargs):
         raise NotImplementedError(
-            f"gsplat_tpu_torch reads Blender scenes only; the {kind} reader "
-            "comes with a later slice of the port")
+            f"gsplat_tpu_torch reads Blender and SwinGS scenes only; the "
+            f"{kind} reader comes with a later slice of the port")
     return reader
 
 
@@ -114,7 +219,7 @@ SCENE_LOAD_CALLBACKS: Dict[str, Callable] = {
     "Colmap": _later_slice("COLMAP"),
     "Blender": read_blender_scene,
     "Google": _later_slice("Google Immersive"),
-    "SwinGS": _later_slice("SwinGS"),
+    "SwinGS": read_dynamic_scene,
 }
 
 

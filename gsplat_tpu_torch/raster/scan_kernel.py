@@ -1,6 +1,7 @@
 """Scan kernels (port of gsplat_tpu/raster/scan_kernel.py): the
 owner-expansion kernels of binning, ``expand_scan`` and ``merge_expand``,
-and the compensated ``multi_cumsum`` of the gradient reduction.
+the compensated ``multi_cumsum`` of the gradient reduction, and
+``multi_cummax``.
 
 Each public function is a wrapper: a CUDA tensor launches the hand-written
 Hopper kernel in ``csrc/scan_kernels.cu`` (and adds one to the wrapper's
@@ -19,6 +20,9 @@ it. The source notes in the .cu file give each kernel's bound and design.
   float32 cumsum of each row of an [n, K] array, with a compensated carry
   between 4096-element blocks so each element's error stays at
   within-block scale.
+- ``multi_cummax`` replaces ``scan_kernel._kernel``: the inclusive int32
+  cummax of each row of an [n, K] array. No module calls it (the JAX
+  package's neither); it is held on the card by itself.
 """
 
 from __future__ import annotations
@@ -146,3 +150,30 @@ def multi_cumsum(x: torch.Tensor) -> torch.Tensor:
 
 
 multi_cumsum.launches = 0
+
+
+def multi_cummax_plain(x: torch.Tensor) -> torch.Tensor:
+    """Plain PyTorch version of ``multi_cummax``."""
+    return torch.cummax(x, dim=1).values
+
+
+def multi_cummax(x: torch.Tensor) -> torch.Tensor:
+    """Inclusive cummax of each row of ``x`` [n, K] int32."""
+    if x.dtype != torch.int32 or x.dim() != 2 or not x.is_contiguous():
+        raise ValueError(f"x: expected a contiguous [n, K] int32 tensor, "
+                         f"got {x.dtype} {tuple(x.shape)}")
+    if x.device.type == "cpu":
+        return multi_cummax_plain(x)
+    out = torch.empty_like(x)
+    if x.numel():
+        ext = cuda_ext.load()
+        n, k = x.shape
+        # the same 4096-element blocks as multi_cumsum
+        totals = torch.empty(n * ext.cumsum_blocks(k), dtype=torch.int32,
+                             device=x.device)
+        ext.multi_cummax(x, totals, out)
+        multi_cummax.launches += 1
+    return out
+
+
+multi_cummax.launches = 0

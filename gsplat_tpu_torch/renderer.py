@@ -1,10 +1,10 @@
-"""High-level render entry (port of gsplat_tpu/renderer.py: ``render``).
+"""High-level render entries (port of gsplat_tpu/renderer.py).
 
-Renders a GaussianState through the rasterizer with the settings the
-caller passes (the inference path, or the training path when
-``settings.inference`` is False), and returns the same bundle as the JAX
-``render``. The reference's python-side SH / covariance switches and
-``deformable_render`` are not ported yet.
+``render`` draws a GaussianState, ``deformable_render`` a SwinState at a
+frame, through the rasterizer with the settings the caller passes (the
+inference path, or the training path when ``settings.inference`` is
+False); both return the same bundle as their JAX counterparts. The
+reference's python-side SH / covariance switches are not ported yet.
 """
 
 from __future__ import annotations
@@ -33,4 +33,32 @@ def render(camera: CameraParams, state: GaussianState, bg,
         "used_tile": out.used_tile,
         "num_dup": out.num_dup,
         "final_t": out.final_t,
+    }
+
+
+def deformable_render(camera: CameraParams, state, frame: float, bg,
+                      settings: RasterizeSettings,
+                      sh_degree: int | None = None):
+    """Frame-indexed render of a SwinState (the reference
+    deformable_render, gaussian_renderer/__init__.py:105-172): the rigid
+    deformation applied by age, the union's active set rendered; returns
+    the active-set parameters too (``input_gaussians``, which the
+    regularisers read)."""
+    from gsplat_tpu_torch.model import swin as swin_lib
+
+    deg = state.im.max_sh_degree if sh_degree is None else sh_degree
+    kw = swin_lib.union_params_at(state, frame)
+    out = rasterize(kw["means3d"], kw["scales"], kw["quats"],
+                    kw["opacities"], kw["shs"], camera, deg, bg, settings,
+                    alive=kw["alive"])
+    return {
+        "render": out.image,
+        "viewspace_points": None,
+        "visibility_filter": out.radii > 0,
+        "radii": out.radii,
+        "is_used": out.is_used,
+        "used_tile": out.used_tile,
+        "num_dup": out.num_dup,
+        "final_t": out.final_t,
+        "input_gaussians": kw,
     }

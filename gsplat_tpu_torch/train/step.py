@@ -33,12 +33,16 @@ class StepMetrics(NamedTuple):
     psnr: torch.Tensor
 
 
-def masked_mean(x, mask, count: int):
-    """Mean over the alive rows only (the reference's .mean() runs over
-    tensors that hold exactly the alive rows)."""
-    per_row = torch.mean(x, dim=tuple(range(1, x.dim())))
-    return torch.sum(torch.where(mask, per_row, torch.zeros_like(per_row))
-                     ) / max(count, 1)
+def masked_mean(x, mask, count):
+    """Mean over the masked rows only (the reference's .mean() runs over
+    tensors that hold exactly those rows). ``count`` is the number of
+    masked rows, a host int or a tensor (then counted on the device)."""
+    per_row = torch.mean(x, dim=tuple(range(1, x.dim()))) if x.dim() > 1 \
+        else x
+    total = torch.sum(torch.where(mask, per_row, torch.zeros_like(per_row)))
+    if isinstance(count, torch.Tensor):
+        return total / torch.clamp(count.to(total.dtype), min=1.0)
+    return total / max(count, 1)
 
 
 def learning_rates(opt: OptimizationConfig, spatial_lr_scale: float,

@@ -326,6 +326,38 @@ def test_multi_cumsum_plain_matches_float64():
                                atol=2e-3, rtol=1e-5)
 
 
+def cummax_case(n, k, seed):
+    """[n, K] int32 rows: random values, an INT_MIN prefix in row 0, a
+    descending row and a constant row."""
+    rng = np.random.default_rng(seed)
+    x = rng.integers(-2**31, 2**31 - 1, size=(n, k), dtype=np.int64)
+    x = x.astype(np.int32)
+    if k:
+        x[0, :min(k, 5000)] = np.iinfo(np.int32).min
+        if n > 1:
+            x[1] = np.sort(x[1])[::-1]
+        if n > 2:
+            x[2] = 7
+    return x
+
+
+@pytest.mark.parametrize("n,k", [(3, 4096 * 2 + 77), (2, 1), (1, 0),
+                                 (4, 4096)])
+def test_multi_cummax_plain_matches_loop(n, k):
+    x = cummax_case(n, k, seed=k)
+    want = x.copy()
+    for row in want:
+        for i in range(1, k):
+            row[i] = max(row[i], row[i - 1])
+    got = tscan.multi_cummax(torch.from_numpy(x))
+    assert got.dtype == torch.int32 and got.shape == (n, k)
+    np.testing.assert_array_equal(got.numpy(), want)
+    with pytest.raises(ValueError):
+        tscan.multi_cummax(torch.from_numpy(x).long())
+    with pytest.raises(ValueError):
+        tscan.multi_cummax(torch.zeros(4, 6, dtype=torch.int32)[:, ::2])
+
+
 def test_wrappers_reject_bad_inputs():
     i32 = torch.zeros(8, dtype=torch.int32)
     with pytest.raises(ValueError):
@@ -499,3 +531,16 @@ def test_training_rasterize_cuda_matches_cpu_port(cuda):
     for a, b in zip(gg, cg):
         assert bool(torch.isfinite(a).all())
         assert float((a - b).abs().max()) <= 2e-3 * float(b.abs().max())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n,k", [(3, 77), (1, 4096), (3, 3 * 4096 + 511),
+                                 (2, (1 << 20) + 3), (1, 0)])
+def test_multi_cummax_cuda_matches_plain(cuda, n, k):
+    x = torch.from_numpy(cummax_case(n, k, seed=k))
+    want = tscan.multi_cummax_plain(x)
+    before = tscan.multi_cummax.launches
+    got = tscan.multi_cummax(x.to(cuda))
+    torch.cuda.synchronize()
+    assert tscan.multi_cummax.launches == before + (1 if k else 0)
+    assert torch.equal(got.cpu(), want)
