@@ -50,10 +50,16 @@ the result line is printed:
                gate), the probed k_dup
   kernel       the blend forward and backward and multi_cumsum against
                their plain versions on the inputs of each setting's first
-               step (and merge_expand at the swin setting's) (forward: colour and T within 1e-5, used > 0 per slot
-               identical; backward: each dfeat row within 1e-4 of its max;
-               multi_cumsum: 2e-3 + 1e-5 |x| of a float64 cumsum); times
+               step (and merge_expand at the swin setting's) (forward:
+               colour and T within 1e-5, used > 0 per slot identical;
+               backward: each dfeat row within 1e-4 of its max,
+               two launches bit-equal; multi_cumsum: 2e-3 + 1e-5 |x| of a
+               float64 cumsum); times; for the blends also the pairs that
+               pass 1/255 (bound_ms counts those alone; bound_all_pairs_ms
+               every pair whose pixel is not done) and the
+               share of (warp, slot) pairs the kernels' cull keeps
   kernel_yardstick  merge_expand beside torch.searchsorted per setting
+               (owners only: a partial yardstick, not the same function)
   train_small  tests/fixtures/hw_parity_golden.npz replayed without JAX:
                bench.py's gates, then one split densify iteration
   train        per setting, counts zeroed: one warm step, 3 windows of
@@ -112,6 +118,14 @@ FP32_OPS = 67e12       # H100 SXM float32 outside the tensor cores, op/s
 # quadratic form, exp, opa scale, clamp, two tests, weight, 3 FMAs (6),
 # 1 - alpha and the transmittance product
 RENDER_OPS_PER_PAIR = 25
+
+
+# the keys of each kernel's entry on the kernels line (the blends add
+# bound_all_pairs_ms; the phase lines carry more: shapes, flips, cull
+# statistics)
+KERNEL_LINE_KEYS = ("name", "route", "source", "replaces", "launches",
+                    "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
+                    "library_ms", "bound_all_pairs_ms")
 
 
 def log(phase: str, **kw) -> None:
@@ -232,8 +246,9 @@ def bound(nbytes, ops):
 
 
 def searchsorted_ms(starts, k):
-    """library_ms of merge_expand: torch.searchsorted at its shapes (it
-    finds the owners only; the three gathers are not in it)."""
+    """A partial yardstick for merge_expand, not its library_ms:
+    torch.searchsorted at its shapes finds the owners only (pack[g] and
+    starts[g], the kernel's other outputs, are not in it)."""
     import torch
 
     d = torch.arange(k, dtype=torch.int32, device=starts.device)
@@ -384,8 +399,8 @@ def check_merge_expand(starts, pack, kk, card_name, **extra):
         plain_ms=cuda_ms(lambda: scan_kernel.merge_expand_plain(
             starts, pack, kk), 5),
         **dict(zip(("bound_ms", "bound_by"), bound(nbytes, ops))),
-        library_ms=searchsorted_ms(starts, kk), shape=f"P={p} K={kk}",
-        **extra)
+        library_ms=None, owners_only_searchsorted_ms=searchsorted_ms(
+            starts, kk), shape=f"P={p} K={kk}", **extra)
     log("kernel", card=card_name, **entry)
     return entry
 
@@ -623,6 +638,35 @@ CLI_FIXTURE = os.path.join(ROOT, "tests", "fixtures", "quality_blender")
 BLEND_FWD_OPS_PER_PAIR = 27
 BLEND_BWD_OPS_PER_PAIR = 62
 
+def kept_slot_share(feat, meta, visited, kw, block):
+    """Share of the (pixel block, slot) pairs of the visited chunks whose
+    cull box meets the block, for the tile cut into ``block``-sized pixel
+    blocks (the kernels' warp blocks, or the 8 x 4 sub-blocks a thread's
+    j-th pixels form across a warp); before warps stop at saturation. The
+    cull rule is tile_kernel's transcription of the kernels'."""
+    import torch
+
+    from gsplat_tpu_torch.raster import tile_kernel
+
+    bx, by = block
+    tx, ty, chunk = kw["tile_x"], kw["tile_y"], kw["chunk"]
+    nbx, nby = -(-tx // bx), -(-ty // by)
+    cidx = torch.cat(visited)
+    tiles = (meta[cidx] >> 2).long()
+    f = feat.reshape(9, -1, chunk)[:, cidx]                    # [9, V, C]
+    xl = f[0] - ((tiles % kw["grid_x"]) * tx).float()[:, None]
+    yl = f[1] - ((tiles // kw["grid_x"]) * ty).float()[:, None]
+    hx, hy = tile_kernel.blend_cull_extent(f[2], f[3], f[4], f[5])
+    wx = torch.arange(nbx, device=feat.device).repeat(nby) * bx
+    wy = torch.arange(nby, device=feat.device).repeat_interleave(nbx) * by
+    x0, y0 = wx.float(), wy.float()
+    x1 = torch.clamp(wx + bx, max=tx).float() - 1
+    y1 = torch.clamp(wy + by, max=ty).float() - 1
+    xl, yl, hx, hy = (t[:, :, None] for t in (xl, yl, hx, hy))
+    kept = tile_kernel.blend_cull_meets(xl, yl, hx, hy, x0, x1, y0,
+                                        y1)                   # [V, C, W]
+    return float(kept.float().mean())
+
 
 def probe_k_dup(need, chunk, headroom=1.12, floor=1 << 15):
     """bench.py's budget rule: measured demand x 1.12, chunk-aligned."""
@@ -820,6 +864,40 @@ def blend_kwargs(args):
                             tile_y=tile_y, grid_x=grid_x, chunk=chunk)
 
 
+def check_blend(setting, forward, backward, feat, meta, dpack, kw, want):
+    """Hold one build's blend forward and backward (callables with the
+    wrappers' signatures) against the plain versions' ``want`` = (ct,
+    used, dfeat): colour and T within 1e-5 and used > 0 identical per slot
+    (flips at the 1e-4 stop threshold, if any, show as whole pixels beyond
+    tolerance; both counts are gated at zero), each dfeat row within 1e-4
+    of its maximum, two backward launches bit-equal. Returns the errors."""
+    import torch
+
+    want_ct, want_used, want_d = want
+    got_ct, got_used = forward(feat, meta, **kw)
+    got = backward(feat, meta, dpack, **kw)
+    again = backward(feat, meta, dpack, **kw)
+    torch.cuda.synchronize()
+    bad_pix = int(((got_ct - want_ct).abs().amax(dim=1) > 1e-5).sum())
+    bad_slots = int(((got_used > 0) != (want_used > 0)).sum())
+    if bad_pix or bad_slots:
+        raise AssertionError(f"{setting}: blend forward vs plain: {bad_pix} "
+                             f"pixels beyond 1e-5, {bad_slots} slots differ "
+                             f"in used > 0")
+    row_max = want_d.abs().amax(dim=1)
+    row_err = (got - want_d).abs().amax(dim=1)
+    if bool((row_err > 1e-4 * row_max).any()):
+        raise AssertionError(f"{setting}: blend backward vs plain, row "
+                             f"errors {row_err.tolist()} vs maxima "
+                             f"{row_max.tolist()}")
+    if not torch.equal(got, again):
+        raise AssertionError(f"{setting}: two blend backward launches differ")
+    return dict(
+        fwd_max_abs_err=float((got_ct - want_ct).abs().max()),
+        flips=bad_pix, bwd_max_abs_err=float((got - want_d).abs().max()),
+        max_rel_row_err=float((row_err / row_max.clamp(min=1e-30)).max()))
+
+
 def check_training_kernels(caps, card_name):
     """The three training kernels against their plain versions on the
     inputs of each setting's first step (detached: the plain versions must
@@ -837,74 +915,64 @@ def _check_training_kernels(caps, card_name):
 
     out = {}
     for name, cap in caps.items():
+        # the backward was recorded with the forward's feat and chunk_meta
         feat, meta, kw = blend_kwargs(cap["blend_forward"])
+        dpack = cap["blend_backward"][2].detach()
         stats = {}
         want_ct, want_used = tile_kernel._blend_plain(feat, meta, stats=stats,
                                                       **kw)
-        got_ct, got_used = tile_kernel.tile_blend_forward(feat, meta, **kw)
-        torch.cuda.synchronize()
-        bad_pix = int(((got_ct - want_ct).abs().amax(dim=1) > 1e-5).sum())
-        bad_slots = int(((got_used > 0) != (want_used > 0)).sum())
-        err = float((got_ct - want_ct).abs().max())
-        # flips at the 1e-4 stop threshold, if any, show as whole pixels
-        # beyond tolerance; both counts are gated at zero
-        if bad_pix or bad_slots:
-            raise AssertionError(f"{name}: blend forward vs plain: "
-                                 f"{bad_pix} pixels beyond 1e-5, "
-                                 f"{bad_slots} slots differ in used > 0")
-        k = feat.shape[1]
-        n_pix = kw["n_pix"]
-        nbytes = (stats["chunks"] * kw["chunk"] * 36 + meta.numel() * 4
-                  + kw["num_tiles"] * 16 * n_pix + 4 * k)
-        b_ms, b_by = bound(nbytes, stats["pairs"] * BLEND_FWD_OPS_PER_PAIR)
-        entry = dict(
-            name="tile_blend_forward", route="cuda",
-            source="gsplat_tpu_torch/csrc/blend_kernels.cu",
-            replaces="gsplat_tpu/raster/tile_kernel.py:348",
-            setting=name, max_abs_err=err, flips=bad_pix,
-            ms=cuda_ms(lambda: tile_kernel.tile_blend_forward(feat, meta,
-                                                              **kw), 10),
-            plain_ms=cuda_ms(lambda: tile_kernel.tile_blend_forward_plain(
-                feat, meta, **kw), 1, warmup=0),
-            bound_ms=b_ms, bound_by=b_by, library_ms=None,
-            shape=f"tiles={kw['num_tiles']} slots={k} "
-                  f"visited_chunks={stats['chunks']} "
-                  f"live_pairs={stats['pairs']}")
-        log("kernel", card=card_name, **entry)
-        out.setdefault("tile_blend_forward", {})[name] = entry
-
-        args = cap["blend_backward"]
-        feat, meta, kw = blend_kwargs(args)
-        dpack = args[2].detach()
-        want = tile_kernel.tile_blend_backward_plain(feat, meta, dpack, **kw)
-        got = tile_kernel.tile_blend_backward(feat, meta, dpack, **kw)
-        torch.cuda.synchronize()
-        row_max = want.abs().amax(dim=1)
-        row_err = (got - want).abs().amax(dim=1)
-        if bool((row_err > 1e-4 * row_max).any()):
-            raise AssertionError(f"{name}: blend backward vs plain, row "
-                                 f"errors {row_err.tolist()} vs maxima "
-                                 f"{row_max.tolist()}")
-        nbytes = (stats["chunks"] * kw["chunk"] * 36 + meta.numel() * 4
-                  + kw["num_tiles"] * 16 * n_pix + 36 * k)
-        b_ms, b_by = bound(nbytes, stats["pairs"] * BLEND_BWD_OPS_PER_PAIR)
-        entry = dict(
-            name="tile_blend_backward", route="cuda",
-            source="gsplat_tpu_torch/csrc/blend_kernels.cu",
-            replaces="gsplat_tpu/raster/tile_kernel.py:526",
-            setting=name, max_abs_err=float((got - want).abs().max()),
-            max_rel_row_err=float((row_err / row_max.clamp(min=1e-30)
-                                   ).max()),
-            ms=cuda_ms(lambda: tile_kernel.tile_blend_backward(
-                feat, meta, dpack, **kw), 10),
-            plain_ms=cuda_ms(lambda: tile_kernel.tile_blend_backward_plain(
-                feat, meta, dpack, **kw), 1, warmup=0),
-            bound_ms=b_ms, bound_by=b_by, library_ms=None,
-            shape=f"tiles={kw['num_tiles']} slots={k} "
-                  f"visited_chunks={stats['chunks']} "
-                  f"live_pairs={stats['pairs']}")
-        log("kernel", card=card_name, **entry)
-        out.setdefault("tile_blend_backward", {})[name] = entry
+        want_d = tile_kernel.tile_blend_backward_plain(feat, meta, dpack,
+                                                       **kw)
+        errs = check_blend(name, tile_kernel.tile_blend_forward,
+                           tile_kernel.tile_blend_backward, feat, meta, dpack,
+                           kw, (want_ct, want_used, want_d))
+        k, n_pix = feat.shape[1], kw["n_pix"]
+        shape = (f"tiles={kw['num_tiles']} slots={k} visited_chunks="
+                 f"{stats['chunks']} live_pairs={stats['pairs']}")
+        cull = dict(passing_pairs=stats["passing"],
+                    kept_warp_slot_share=kept_slot_share(
+                        feat, meta, stats["visited"], kw,
+                        tile_kernel.BLEND_WARP_BLOCK),
+                    kept_sub_block_slot_share=kept_slot_share(
+                        feat, meta, stats["visited"], kw,
+                        tile_kernel.BLEND_SUB_BLOCK))
+        # bound_ms: the work this run's data needs, the pairs that pass
+        # alpha >= 1/255; bound_all_pairs_ms: every pair whose pixel is not
+        # done (the work without culling), the first kernels' bound
+        slot_bytes = stats["chunks"] * kw["chunk"] * 36 + meta.numel() * 4
+        pix_bytes = kw["num_tiles"] * 16 * n_pix
+        for kname, tpu_line, nbytes, ops, run, plain in (
+                ("tile_blend_forward", 348, slot_bytes + pix_bytes + 4 * k,
+                 BLEND_FWD_OPS_PER_PAIR,
+                 lambda: tile_kernel.tile_blend_forward(feat, meta, **kw),
+                 lambda: tile_kernel.tile_blend_forward_plain(feat, meta,
+                                                              **kw)),
+                ("tile_blend_backward", 526,
+                 slot_bytes + pix_bytes + 36 * k, BLEND_BWD_OPS_PER_PAIR,
+                 lambda: tile_kernel.tile_blend_backward(feat, meta, dpack,
+                                                         **kw),
+                 lambda: tile_kernel.tile_blend_backward_plain(
+                     feat, meta, dpack, **kw))):
+            b_ms, b_by = bound(nbytes, stats["passing"] * ops)
+            fwd = kname == "tile_blend_forward"
+            entry = dict(
+                name=kname, route="cuda",
+                source="gsplat_tpu_torch/csrc/blend_kernels.cu",
+                replaces=f"gsplat_tpu/raster/tile_kernel.py:{tpu_line}",
+                setting=name,
+                max_abs_err=errs["fwd_max_abs_err" if fwd
+                                 else "bwd_max_abs_err"],
+                ms=cuda_ms(run, 10), plain_ms=cuda_ms(plain, 1, warmup=0),
+                bound_ms=b_ms, bound_by=b_by, library_ms=None,
+                bound_all_pairs_ms=bound(nbytes, stats["pairs"] * ops)[0],
+                **cull, shape=shape)
+            if fwd:
+                entry["flips"] = errs["flips"]
+            else:
+                entry.update(max_rel_row_err=errs["max_rel_row_err"],
+                             repeat_bit_equal=True)
+            log("kernel", card=card_name, **entry)
+            out.setdefault(kname, {})[name] = entry
 
         if "multi_cumsum" in cap:
             x = cap["multi_cumsum"][0].detach()
@@ -1754,7 +1822,7 @@ def main() -> int:
             name="merge_expand", shape=f"P={starts_t.shape[0]} K={k_t}",
             ms=cuda_ms(lambda: scan_kernel.merge_expand(starts_t, pack_t,
                                                         k_t), 20),
-            library_ms=searchsorted_ms(starts_t, k_t))
+            owners_only_searchsorted_ms=searchsorted_ms(starts_t, k_t))
     train_small(card_name)
 
     # ---- training main paths, counts zeroed before each setting
@@ -1797,8 +1865,7 @@ def main() -> int:
     print(card_name)
     print(json.dumps({"kernels": [
         {k: v for k, v in kernels[name].items()
-         if k not in ("shape", "setting", "flips", "max_rel_row_err",
-                      "max_abs_vs_plain")}
+         if k in KERNEL_LINE_KEYS}
         for name in ("expand_scan", "merge_expand", "render_forward",
                      "tile_blend_forward", "tile_blend_backward",
                      "multi_cumsum", "multi_cummax")]}))

@@ -43,7 +43,7 @@ NUM_FEAT = 9
 MAX_CHUNK = 256     # shared-memory staging limit of the CUDA render
 MAX_PIXELS = 4096   # 1024 threads x 4 pixels per tile
 BLEND_MAX_CHUNK = 128    # the training blend kernels' staging limit
-BLEND_MAX_PIXELS = 1024  # one thread per pixel
+BLEND_MAX_PIXELS = 1024  # the training blend kernels' tile limit
 
 
 def _tile_chunk_ranges(chunk_meta: torch.Tensor, num_tiles: int):
@@ -170,7 +170,8 @@ def _blend_chunk(fc, ox, oy, px, py, t_in, done_in, count_pairs=False):
     per-(tile, slot, pixel) arrays and the carried state after the chunk.
     The quadratic form and T follow the kernels' operation order, so both
     take the same threshold branches. With ``count_pairs`` it also counts
-    the (pixel, slot) pairs whose pixel is not done, the kernels' work."""
+    the (pixel, slot) pairs whose pixel is not done (the work of a kernel
+    without culling) and, of those, the pairs that pass alpha >= 1/255."""
     x = fc[0] - ox[:, None]
     y = fc[1] - oy[:, None]
     dx = px[None, None, :] - x[:, :, None]                  # [A, C, n_pix]
@@ -186,25 +187,29 @@ def _blend_chunk(fc, ox, oy, px, py, t_in, done_in, count_pairs=False):
     gate = torch.empty(alpha.shape, dtype=torch.bool, device=alpha.device)
     t, done = t_in, done_in
     live_pairs = torch.zeros((), dtype=torch.int64, device=alpha.device)
+    passing_pairs = torch.zeros_like(live_pairs)
     for g in range(alpha.shape[1]):   # the sequential T product
-        if count_pairs:
-            live_pairs += (~done).sum()
         t_g[:, g] = t
         t_next = t * one_m[:, g]
         live = (alpha[:, g] > 0.0) & ~done
+        if count_pairs:
+            live_pairs += (~done).sum()
+            passing_pairs += live.sum()
         stop = live & (t_next < T_EPS)
         gate[:, g] = live & ~stop
         t = torch.where(gate[:, g], t_next, t)
         done = done | stop
     return dict(dx=dx, dy=dy, g_exp=g_exp, alpha=alpha, one_m=one_m,
-                t_g=t_g, gate=gate, t=t, done=done, live_pairs=live_pairs)
+                t_g=t_g, gate=gate, t=t, done=done, live_pairs=live_pairs,
+                passing_pairs=passing_pairs)
 
 
 def _blend_plain(feat, chunk_meta, num_tiles, n_pix, tile_x, tile_y, grid_x,
                  chunk, dpack=None, stats=None):
     """Shared walk of the plain training blends: the forward when
     ``dpack`` is None, else the backward. A ``stats`` dict receives the
-    visited chunk count and the live (pixel, slot) pairs."""
+    visited chunk count and indices, the live (pixel, slot) pairs and the
+    pairs that pass alpha >= 1/255."""
     dev = feat.device
     f = feat.reshape(NUM_FEAT, -1, chunk)                   # [9, n_chunks, C]
     first, n_ch = _tile_chunk_ranges(chunk_meta, num_tiles)
@@ -235,6 +240,9 @@ def _blend_plain(feat, chunk_meta, num_tiles, n_pix, tile_x, tile_y, grid_x,
                 stats["chunks"] = stats.get("chunks", 0) + idx.numel()
                 stats["pairs"] = stats.get("pairs", 0) + int(
                     v["live_pairs"])
+                stats["passing"] = stats.get("passing", 0) + int(
+                    v["passing_pairs"])
+                stats.setdefault("visited", []).append(cidx)
             w = v["alpha"] * v["t_g"] * v["gate"]
             slots = (cidx[:, None] * chunk
                      + torch.arange(chunk, device=dev)[None, :]).flatten()
@@ -285,6 +293,41 @@ def tile_blend_backward_plain(feat, chunk_meta, dpack, num_tiles: int,
     """Plain PyTorch version of ``tile_blend_backward``."""
     return _blend_plain(feat, chunk_meta, num_tiles, n_pix, tile_x, tile_y,
                         grid_x, chunk, dpack=dpack)
+
+
+# The blend kernels' cull rule and warp geometry, transcribed from
+# csrc/blend_kernels.cu (cull_extent, meets, kPix, kDetSlack, kR2Slack,
+# kExtSlack) for the tests and chip_smoke.py's cull statistics; no path
+# runs them, and they change with the kernel's rule.
+BLEND_SUB_BLOCK = (8, 4)    # the pixels a warp's 8 x 4 lanes hold at once
+BLEND_WARP_BLOCK = (16, 8)  # a warp's pixels: four a thread, 2 x 2 sub-blocks
+BLEND_CULL_SLACK = (1e-5, 1e-5, 1e-4)   # on det, r^2 and the extents
+
+
+def blend_cull_extent(a, b, c, opa):
+    """Half extents (hx, hy) of the box around a slot's mean outside which
+    no pixel passes alpha >= ALPHA_MIN: -1 where none can (opa <
+    ALPHA_MIN), inf where the conic is not positive definite (never
+    culled). float32 tensors, broadcast."""
+    det_s, r2_s, ext_s = BLEND_CULL_SLACK
+    ac = a * c
+    det = ac - b * b - det_s * ac
+    pd = (a > 0) & (c > 0) & (det > 0)
+    r2 = torch.clamp(2.0 * torch.log(255.0 * opa), min=0.0) * (1 + r2_s) + r2_s
+    det = torch.where(pd, det, torch.ones_like(det))
+    inf = torch.full_like(ac, float("inf"))
+    hx = torch.where(pd, torch.sqrt(r2 * c / det) * (1 + ext_s), inf)
+    hy = torch.where(pd, torch.sqrt(r2 * a / det) * (1 + ext_s), inf)
+    drop = opa < ALPHA_MIN
+    return hx.masked_fill(drop, -1.0), hy.masked_fill(drop, -1.0)
+
+
+def blend_cull_meets(xl, yl, hx, hy, x0, x1, y0, y1):
+    """May a pixel of [x0, x1] x [y0, y1] (tile coordinates) pass for a
+    slot at tile-local mean (xl, yl) with half extents (hx, hy)? False only
+    when none can; NaN extents keep the slot. Broadcast."""
+    return ~((hx < 0) | (x0 - xl > hx) | (x1 - xl < -hx)
+             | (y0 - yl > hy) | (y1 - yl < -hy))
 
 
 def _check_blend_cuda(feat, chunk_meta, n_pix, chunk, *others) -> None:

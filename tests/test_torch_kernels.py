@@ -18,6 +18,8 @@ The case builders here are shared by the JAX parity tests.
 import numpy as np
 import pytest
 import torch
+from hypothesis import given, settings
+from hypothesis import strategies as st
 
 from gsplat_tpu_torch import renderer as trenderer
 from gsplat_tpu_torch.core import camera as tcamera
@@ -208,19 +210,85 @@ def test_render_forward_plain_matches_loop():
                                atol=1e-5)
 
 
-def blend_case(seed=0):
-    """``render_case`` as a float32 training stream, with row 3 of a
-    random cotangent pack for the backward."""
-    feat, meta, kw = render_case(seed)
+def graze_case(seed=0, tile_x=32, tile_y=16, chunk=128):
+    """One tile of splats whose alpha = 1/255 contours end within
+    +-1e-3 px of a pixel column or row on a multiple of 8 columns or 4
+    rows (the edges of the kernels' warp blocks), from either side, at
+    axis-aligned and rotated conics; opacities just above and below 1/255
+    and chunk padding (opacity 0) among them. A trailing sentinel chunk."""
+    rng = np.random.default_rng(seed)
+    sx, sy = ttile.BLEND_SUB_BLOCK
+    n = chunk - 8                          # the last 8 slots are padding
+    feat = np.zeros((9, 2 * chunk), np.float64)
+    deltas = [-1e-3, -1e-4, -1e-6, 0.0, 1e-6, 1e-4, 1e-3]
+    for k in range(n):
+        kind = k % 4
+        opa = rng.uniform(0.02, 1.0)
+        if k % 16 == 5:
+            opa = (1 + (1e-6 if k % 32 == 5 else -1e-6)) / 255.0
+        s1, s2 = rng.uniform(0.5, 4.0, 2)
+        th = 0.0 if kind < 2 else rng.uniform(0, np.pi)
+        rot = np.array([[np.cos(th), -np.sin(th)], [np.sin(th), np.cos(th)]])
+        a, b, _, c = np.linalg.inv(rot @ np.diag([s1 * s1, s2 * s2])
+                                   @ rot.T).ravel()
+        r2 = 2 * np.log(255 * opa) if opa > 1 / 255 else 0.0
+        det = a * c - b * b
+        hx, hy = np.sqrt(r2 * c / det), np.sqrt(r2 * a / det)
+        d = deltas[k % len(deltas)]
+        row = rng.integers(2, tile_y - 2)
+        col = rng.integers(2, tile_x - 2)
+        ex = sx * rng.integers(1, tile_x // sx)
+        ey = sy * rng.integers(1, tile_y // sy)
+        if kind in (0, 3):     # rightmost point near column ex, from the left
+            x = ex - hx + d
+            y = row + b / c * hx
+        elif kind == 1:        # leftmost point near column ex - 1
+            x = ex - 1 + hx - d
+            y = row - b / c * hx
+        else:                  # lowest point near row ey
+            y = ey - hy + d
+            x = col + b / a * hy
+        feat[:, k] = [x, y, a, b, c, opa, *rng.uniform(0, 1, 3)]
+    feat = feat.astype(np.float32)
+    meta = np.array([(0 << 2) | 3, (1 << 2) | 3], np.int32)
+    return feat, meta, dict(num_tiles=1, n_pix=tile_x * tile_y,
+                            tile_x=tile_x, tile_y=tile_y, grid_x=1,
+                            chunk=chunk)
+
+
+# (chunk, tile_x, tile_y) of render_case's six tiles, or the grazing case
+BLEND_CASES = {"8x4-c16": (16, 8, 4), "16x16-c128": (128, 16, 16),
+               "64x16-c128": (128, 64, 16), "ragged-24x10-c32": (32, 24, 10),
+               "thin-256x4-c128": (128, 256, 4), "graze-32x16-c128": None}
+
+
+def blend_case(case="8x4-c16", seed=0):
+    """A float32 training stream (``render_case`` at the case's chunk and
+    tile shape: a saturating tile, an empty one, and two one-chunk tiles;
+    or ``graze_case``), with a random cotangent pack for the backward."""
+    if BLEND_CASES[case] is None:
+        feat, meta, kw = graze_case(seed)
+    else:
+        chunk, tile_x, tile_y = BLEND_CASES[case]
+        feat, meta, kw = render_case(seed, chunk=chunk, tile_x=tile_x,
+                                     tile_y=tile_y)
     rng = np.random.default_rng(seed + 1)
     dpack = rng.normal(size=(kw["num_tiles"], 4, kw["n_pix"])).astype(
         np.float32)
     return feat, meta, dpack, kw
 
 
-def blend_loop(feat, meta, kw):
+def exp32(x):
+    """float32 e^x as PyTorch (and the CUDA kernels) round it: numpy's
+    float32 exp differs in the last bit on some inputs, which flips
+    grazing pixels at the 1/255 threshold."""
+    return torch.exp(torch.from_numpy(np.asarray(x, np.float32))).numpy()
+
+
+def blend_loop(feat, meta, kw, gates=None):
     """The training blend written as the CUDA reference's per-pixel loop
-    (float32): (ct [T, 4, n_pix], used [K])."""
+    (float32): (ct [T, 4, n_pix], used [K]). A ``gates`` dict receives the
+    (hit, stop) pixel masks of each visited slot."""
     tx, n_pix, chunk = kw["tile_x"], kw["n_pix"], kw["chunk"]
     f32 = np.float32
     ct = np.zeros((kw["num_tiles"], 4, n_pix), f32)
@@ -238,7 +306,7 @@ def blend_loop(feat, meta, kw):
                 x, y, a, b, cc, opa = feat[:6, g]
                 dx, dy = px - (x - f32(ox)), py - (y - f32(oy))
                 power = f32(-0.5) * (a * dx * dx + cc * dy * dy) - b * dx * dy
-                alpha = np.minimum(f32(ttile.ALPHA_MAX), opa * np.exp(power))
+                alpha = np.minimum(f32(ttile.ALPHA_MAX), opa * exp32(power))
                 alpha = np.where((power > 0) | (alpha < ttile.ALPHA_MIN),
                                  f32(0), alpha).astype(f32)
                 t_next = T * (f32(1) - alpha)
@@ -249,34 +317,45 @@ def blend_loop(feat, meta, kw):
                 T = np.where(hit, t_next, T)
                 done |= stop
                 used[g] = hit.sum()
+                if gates is not None:
+                    gates[g] = (hit, stop)
             if done.all():
                 break
         ct[t, :3], ct[t, 3] = col, T
     return ct, used
 
 
-def test_tile_blend_forward_plain_matches_loop():
-    feat, meta, _, kw = blend_case()
+@pytest.mark.parametrize("case", list(BLEND_CASES))
+def test_tile_blend_forward_plain_matches_loop(case):
+    feat, meta, _, kw = blend_case(case)
     want_ct, want_used = blend_loop(feat, meta, kw)
     ct, used = ttile.tile_blend_forward(torch.from_numpy(feat),
                                         torch.from_numpy(meta), **kw)
     assert used.dtype == torch.int32
-    # tile 0 saturates: every pixel latched done inside its 3 chunks
-    assert want_ct[0, 3].max() < 0.05 and (want_used[2 * 16:3 * 16] == 0).all()
+    n_pix, chunk = kw["n_pix"], kw["chunk"]
+    if BLEND_CASES[case] is None:
+        # grazing splats: some barely pass at their contour's pixel
+        assert (want_used[:chunk - 8] > 0).mean() > 0.5
+    else:
+        # tile 0 saturates: every pixel latched done inside its 3 chunks,
+        # the third never visited; tile 1 has no chunks
+        assert want_ct[0, 3].max() < 0.05
+        assert (want_used[2 * chunk:3 * chunk] == 0).all()
+        np.testing.assert_array_equal(
+            ct[1].numpy(), np.r_[np.zeros((3, n_pix)), np.ones((1, n_pix))])
     np.testing.assert_array_equal(used.numpy(), want_used)
     np.testing.assert_allclose(ct.numpy(), want_ct, rtol=1e-5, atol=1e-6)
-    np.testing.assert_array_equal(ct[1].numpy(), np.r_[np.zeros((3, 32)),
-                                                       np.ones((1, 32))])
 
 
-def test_tile_blend_backward_plain_matches_autograd_of_loop():
+@pytest.mark.parametrize("case", list(BLEND_CASES))
+def test_tile_blend_backward_plain_matches_autograd_of_loop(case):
     """The plain backward against torch autograd through the per-pixel
-    loop written with differentiable ops (float64 for the reference)."""
-    feat, meta, dpack, kw = blend_case()
-    got = ttile.tile_blend_backward(torch.from_numpy(feat),
-                                    torch.from_numpy(meta),
-                                    torch.from_numpy(dpack), **kw)
-    ct, _ = blend_loop(feat, meta, kw)
+    loop written with differentiable ops (float64 for the reference; the
+    branches at 1/255 and 1e-4 are the float32 loop's, as the plain
+    version takes them)."""
+    feat, meta, dpack, kw = blend_case(case)
+    gates = {}
+    ct, _ = blend_loop(feat, meta, kw, gates)
     f = torch.from_numpy(feat).double().requires_grad_(True)
     tx, n_pix, chunk = kw["tile_x"], kw["n_pix"], kw["chunk"]
     loss = 0.0
@@ -285,25 +364,20 @@ def test_tile_blend_backward_plain_matches_autograd_of_loop():
         px = torch.arange(n_pix, dtype=torch.float64) % tx
         py = torch.div(torch.arange(n_pix), tx, rounding_mode="floor")
         T = torch.ones(n_pix, dtype=torch.float64)
-        done = torch.zeros(n_pix, dtype=torch.bool)
         col = torch.zeros(3, n_pix, dtype=torch.float64)
         for c in [c for c in range(len(meta)) if meta[c] >> 2 == t]:
             for g in range(c * chunk, (c + 1) * chunk):
+                if g not in gates:       # past the tile's stop
+                    break
+                hit = torch.from_numpy(gates[g][0])
                 dx, dy = px - (f[0, g] - ox), py - (f[1, g] - oy)
                 power = (-0.5 * (f[2, g] * dx * dx + f[4, g] * dy * dy)
                          - f[3, g] * dx * dy)
                 raw = f[5, g] * torch.exp(power)
                 # the 0.99 clamp passes the gradient through
                 alpha = raw - (raw - ttile.ALPHA_MAX).clamp(min=0).detach()
-                live = ((power <= 0) & (alpha >= ttile.ALPHA_MIN) & ~done)
-                t_next = T * (1 - alpha)
-                stop = live & (t_next < ttile.T_EPS)
-                hit = live & ~stop
                 col = col + f[6:9, g, None] * torch.where(hit, alpha * T, 0)
-                T = torch.where(hit, t_next, T)
-                done = done | stop
-            if bool(done.all()):
-                break
+                T = torch.where(hit, T * (1 - alpha), T)
         d = torch.from_numpy(dpack[t]).double()
         loss = loss + (d[:3] * col).sum() + (d[3] * T).sum()
     loss.backward()
@@ -316,6 +390,86 @@ def test_tile_blend_backward_plain_matches_autograd_of_loop():
                                     torch.from_numpy(dp), **kw).numpy()
     scale = np.abs(want).max(axis=1, keepdims=True) + 1e-12
     np.testing.assert_allclose(got / scale, want / scale, atol=2e-4)
+
+
+def f32(v):
+    return torch.tensor(np.float32(v))
+
+
+def cull_extent(a, b, c, opa):
+    """The port's transcription of blend_kernels.cu::cull_extent on float32
+    scalars: half extents (hx, hy), -1 for a slot that never passes, inf
+    when the box is unknown."""
+    return ttile.blend_cull_extent(f32(a), f32(b), f32(c), f32(opa))
+
+
+def block_meets(xl, yl, hx, hy, x0, x1, y0, y1):
+    """blend_kernels.cu::meets: may a pixel of [x0, x1] x [y0, y1] (tile
+    coordinates) pass, for a slot at tile-local mean (xl, yl)?"""
+    return bool(ttile.blend_cull_meets(f32(xl), f32(yl), hx, hy,
+                                       *map(f32, (x0, x1, y0, y1))))
+
+
+def passing_pixels(xl, yl, a, b, c, opa, x0, x1, y0, y1):
+    """Pixels of the block whose float32 alpha, in the plain version's
+    operation order, passes 1/255 (power <= 0 too)."""
+    f = np.float32
+    xs, ys = np.meshgrid(np.arange(x0, x1 + 1, dtype=f),
+                         np.arange(y0, y1 + 1, dtype=f))
+    dx, dy = xs - f(xl), ys - f(yl)
+    a, b, c, opa = f(a), f(b), f(c), f(opa)
+    with np.errstate(over="ignore", invalid="ignore"):
+        power = f(-0.5) * (a * dx * dx + c * dy * dy) - b * dx * dy
+        alpha = np.minimum(f(ttile.ALPHA_MAX), opa * np.exp(power))
+    return (power <= 0) & (alpha >= f(ttile.ALPHA_MIN))
+
+
+@given(log_s=st.tuples(st.floats(-0.6, 2.5), st.floats(-0.6, 2.5)),
+       theta=st.floats(0.0, np.pi), opa=st.floats(1e-4, 1.0),
+       mean=st.tuples(st.floats(-40, 40), st.floats(-40, 40)),
+       size=st.tuples(st.integers(1, 16), st.integers(1, 8)),
+       near=st.booleans(), shift=st.tuples(st.integers(-2, 2),
+                                           st.integers(-2, 2)),
+       far=st.tuples(st.integers(-60, 60), st.integers(-60, 60)))
+@settings(max_examples=300, deadline=None)
+def test_cull_box_never_drops_a_passing_pixel(log_s, theta, opa, mean, size,
+                                              near, shift, far):
+    """No (slot, pixel block) pair that the cull box drops holds a pixel
+    whose float32 alpha passes 1/255, over conics up to 10^3 : 1 in scale,
+    every opacity and blocks that straddle the box's edge."""
+    s1, s2 = 10.0 ** log_s[0], 10.0 ** log_s[1]
+    rot = np.array([[np.cos(theta), -np.sin(theta)],
+                    [np.sin(theta), np.cos(theta)]])
+    a, b, _, c = np.linalg.inv(rot @ np.diag([s1 * s1, s2 * s2])
+                               @ rot.T).ravel().astype(np.float32)
+    xl, yl = np.float32(mean[0]), np.float32(mean[1])
+    hx, hy = cull_extent(a, b, c, opa)
+    w, h = size
+    if near and np.isfinite(float(hx)) and hx > 0:  # at the box's edge
+        x0 = int(np.floor(xl + float(hx))) + shift[0]
+        y0 = int(np.floor(yl - h / 2)) + shift[1]
+    else:
+        x0, y0 = far
+    x1, y1 = x0 + w - 1, y0 + h - 1
+    if not block_meets(xl, yl, hx, hy, x0, x1, y0, y1):
+        assert not passing_pixels(xl, yl, a, b, c, opa, x0, x1, y0,
+                                  y1).any()
+
+
+def test_cull_box_drops_far_and_faint_slots():
+    """The box must cull: a splat far from the block, and one whose
+    opacity is below 1/255 sitting on the block; a conic that is not
+    positive definite is never culled."""
+    a, b, c = 0.5, 0.1, 0.4
+    hx, hy = cull_extent(a, b, c, 0.9)
+    assert 0 < hx < 10 and 0 < hy < 10
+    assert not block_meets(100.0, 3.0, hx, hy, 0, 15, 0, 7)
+    assert block_meets(10.0, 3.0, hx, hy, 0, 15, 0, 7)
+    faint = cull_extent(a, b, c, np.float32(1 / 255) * np.float32(0.999))
+    assert not block_meets(3.0, 3.0, *faint, 0, 15, 0, 7)
+    assert not block_meets(3.0, 3.0, *cull_extent(a, b, c, 0.0), 0, 15, 0, 7)
+    for bad in ((0.5, 0.6, 0.4), (-0.5, 0.0, 0.4), (np.nan, 0.0, 0.4)):
+        assert block_meets(1e4, 1e4, *cull_extent(*bad, 0.9), 0, 15, 0, 7)
 
 
 def test_multi_cumsum_plain_matches_float64():
@@ -465,10 +619,13 @@ def test_render_cuda_matches_cpu_port(cuda, tiles, k_dup, cap):
 
 
 @pytest.mark.gpu
-def test_tile_blend_cuda_matches_plain(cuda):
+@pytest.mark.parametrize("case", list(BLEND_CASES))
+def test_tile_blend_cuda_matches_plain(cuda, case):
     """Blend forward and backward kernels against their plain versions on
-    the card (same expf, so the same threshold branches)."""
-    feat, meta, dpack, kw = blend_case()
+    the card (same expf, so the same threshold branches; the kernels'
+    culling must not drop a pair that passes 1/255); two backward launches
+    give the same dfeat bit for bit."""
+    feat, meta, dpack, kw = blend_case(case)
     f, m, d = (torch.from_numpy(a).to(cuda) for a in (feat, meta, dpack))
     want_ct, want_used = ttile.tile_blend_forward_plain(f, m, **kw)
     want_d = ttile.tile_blend_backward_plain(f, m, d, **kw)
@@ -476,14 +633,16 @@ def test_tile_blend_cuda_matches_plain(cuda):
               ttile.tile_blend_backward.launches)
     ct, used = ttile.tile_blend_forward(f, m, **kw)
     dfeat = ttile.tile_blend_backward(f, m, d, **kw)
+    again = ttile.tile_blend_backward(f, m, d, **kw)
     torch.cuda.synchronize()
     assert (ttile.tile_blend_forward.launches,
             ttile.tile_blend_backward.launches) == (before[0] + 1,
-                                                    before[1] + 1)
+                                                    before[1] + 2)
     assert torch.equal(used, want_used)
     assert float((ct - want_ct).abs().max()) <= 1e-5
     scale = want_d.abs().amax(dim=1, keepdim=True) + 1e-12
     assert float(((dfeat - want_d) / scale).abs().max()) <= 1e-4
+    assert torch.equal(dfeat, again)
 
 
 @pytest.mark.gpu
