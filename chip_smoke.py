@@ -34,7 +34,12 @@ the result line is printed:
                kernel inputs captured from the first camera of each setting
   kernel       each serving kernel against its plain PyTorch version on
                those inputs: expand_scan and merge_expand bit-equal, the
-               render within two bf16 ULPs; CUDA-event times of both; and
+               render within two bf16 ULPs, and two launches of the render
+               and of expand_scan each bit-equal; CUDA-event times; the
+               render's pairs that pass 1/255 (bound_ms counts those
+               alone, bound_all_pairs_ms every pair of the visited chunks)
+               and the share of (warp block / sub-block, slot) pairs its
+               cull keeps; and
                multi_cummax (on no path) bit-equal to torch.cummax at
                3 x 8M, beside torch.cummax's time
   small        a 300-Gaussian scene rendered on the card vs the port on
@@ -58,8 +63,9 @@ the result line is printed:
                pass 1/255 (bound_ms counts those alone; bound_all_pairs_ms
                every pair whose pixel is not done) and the
                share of (warp, slot) pairs the kernels' cull keeps
-  kernel_yardstick  merge_expand beside torch.searchsorted per setting
-               (owners only: a partial yardstick, not the same function)
+  kernel_yardstick  merge_expand beside its bound and torch.searchsorted
+               per setting (owners only: a partial yardstick, not the same
+               function)
   train_small  tests/fixtures/hw_parity_golden.npz replayed without JAX:
                bench.py's gates, then one split densify iteration
   train        per setting, counts zeroed: one warm step, 3 windows of
@@ -306,72 +312,204 @@ def recv_exact(sock, n: int) -> bytes:
 
 # --------------------------------------------------------------- phases ----
 
-def check_kernels(cap, card_name):
-    """Each kernel vs its plain version on main-path inputs; returns the
-    kernels-line entries (launch counts filled in later)."""
+def probe_serving(card_name):
+    """The serving setup: the 100k-Gaussian model written as a PLY (under
+    ``model_dir``) and loaded at cap_max 1M, the 8 orbit cameras, num_dup
+    per camera, the
+    two settings' k_dup and render functions, and the kernel inputs
+    recorded from camera 0 of each setting (``cap``: expand_scan,
+    merge_expand, render_forward; ``store`` also holds _slot_features)."""
     import torch
 
-    from gsplat_tpu_torch.raster import scan_kernel, tile_kernel
+    from gsplat_tpu_torch.model import gaussians
+    from gsplat_tpu_torch.raster import binning
+    from gsplat_tpu_torch.raster import rasterize as rast
+    from gsplat_tpu_torch.viewer import serve
 
-    out = {}
-    (marks, base_in), _ = cap["expand_scan"]
-    k = marks.shape[0]
-    got = scan_kernel.expand_scan(marks, base_in)
-    want = scan_kernel.expand_scan_plain(marks, base_in)
-    torch.cuda.synchronize()
-    err = max(int((g - w).abs().max()) for g, w in zip(got, want))
-    if not all(torch.equal(g, w) for g, w in zip(got, want)):
-        raise AssertionError(f"expand_scan differs from plain: {err}")
-    nbytes = 20 * k            # 2 int32 in, 3 int32 out per slot
-    out["expand_scan"] = dict(
-        name="expand_scan", route="cuda",
-        source="gsplat_tpu_torch/csrc/scan_kernels.cu",
-        replaces="gsplat_tpu/raster/scan_kernel.py:202",
-        max_abs_err=float(err),
-        ms=cuda_ms(lambda: scan_kernel.expand_scan(marks, base_in), 20),
-        plain_ms=cuda_ms(lambda: scan_kernel.expand_scan_plain(marks,
-                                                               base_in), 5),
-        bound_ms=nbytes / MEM_BPS * 1e3, bound_by="bytes", library_ms=None,
-        shape=f"K={k}")
-    log("kernel", card=card_name, **out["expand_scan"])
+    model_dir = os.path.join(WORK, "model")
+    ply_path = os.path.join(model_dir, "point_cloud", "iteration_1",
+                            "point_cloud.ply")
+    write_scene_ply(ply_path, N_GAUSS, SH_DEGREE, seed=0)
+    state = gaussians.load_ply(ply_path, capacity=CAP_MAX,
+                               max_sh_degree=SH_DEGREE, device=DEVICE)
+    cams = orbit_cameras(8, WIDTH, HEIGHT, DEVICE)
+    p = state.capacity
 
-    (starts, pack, kk), _ = cap["merge_expand"]
-    out["merge_expand"] = check_merge_expand(starts, pack, kk, card_name)
+    # num_dup per camera; kernel inputs of camera 0
+    k_expand = 8 * CAP_MAX
+    settings = rast.RasterizeSettings(k_dup=k_expand, inference=True,
+                                      tile_x=serve.TILE_X,
+                                      tile_y=serve.TILE_Y)
+    bg = torch.zeros(3, device=DEVICE)
+    cap = {}
+    store = {k: [] for k in ("expand_scan", "merge_expand", "render_forward",
+                             "_slot_features")}
+    need = []
+    for i, cam in enumerate(cams):
+        with contextlib.ExitStack() as st:
+            if i == 0:
+                st.enter_context(capture(binning, "expand_scan",
+                                         store["expand_scan"]))
+                st.enter_context(capture(rast, "tile_kernel",
+                                         store["render_forward"],
+                                         attr="render_forward"))
+                st.enter_context(capture(rast, "_slot_features",
+                                         store["_slot_features"]))
+            out = rast.rasterize(state.xyz, state.get_scaling(),
+                                 state.get_rotation(),
+                                 state.get_opacity()[:, 0],
+                                 state.get_features(), cam, SH_DEGREE, bg,
+                                 settings, alive=state.alive_mask)
+            need.append(int(out.num_dup))
+    k_merge = MERGE_BUDGET
+    if max(need) > k_merge:   # bench.py's rule: need x 1.02 to 1024
+        k_merge = -(-int(max(need) * 1.02) // 1024) * 1024
+    if not (2 * k_expand >= 7 * p and 2 * k_merge < 7 * p):
+        raise AssertionError("settings do not take both expansion branches")
+    render_fns = {"expand": serve.make_render_fn(state, k_expand, WIDTH,
+                                                 HEIGHT, DEVICE),
+                  "merge": serve.make_render_fn(state, k_merge, WIDTH,
+                                                HEIGHT, DEVICE)}
+    with capture(binning, "merge_expand", store["merge_expand"]):
+        render_fns["merge"](cams[0])
+    for key in ("expand_scan", "merge_expand", "render_forward"):
+        if not store[key]:
+            raise AssertionError(f"the main path did not call {key}")
+        cap[key] = store[key][0]
+    log("probe", card=card_name, gaussians=state.n_alive, capacity=p,
+        num_dup=need, k_dup={"expand": k_expand, "merge": k_merge})
+    return dict(cams=cams, model_dir=model_dir,
+                k_dup={"expand": k_expand, "merge": k_merge},
+                render_fns=render_fns, store=store, cap=cap)
 
-    args, kw = cap["render_forward"]
+
+def render_kwargs(cap_render):
+    """(feat, chunk_meta, bg, wrapper keyword arguments) from a recorded
+    render_forward call."""
+    args, kw = cap_render
     feat, meta, bg = args[:3]
-    rkw = dict(zip(("num_tiles", "n_pix", "tile_x", "tile_y", "grid_x",
-                    "chunk"), args[3:]), **kw)
-    got = tile_kernel.render_forward(feat, meta, bg, **rkw)
-    want, visits = tile_kernel.render_plain_with_visits(feat, meta, bg,
-                                                        **rkw)
+    return feat, meta, bg, dict(zip(("num_tiles", "n_pix", "tile_x",
+                                     "tile_y", "grid_x", "chunk"), args[3:]),
+                                **kw)
+
+
+def check_render(render, feat, meta, bg, rkw, want):
+    """One build's render (a callable with the wrapper's signature) against
+    the plain version's image ``want``: within two bf16 ULPs, and two
+    launches bit-equal. Returns the max abs error."""
+    import torch
+
+    got = render(feat, meta, bg, **rkw)
+    again = render(feat, meta, bg, **rkw)
     torch.cuda.synchronize()
     err = float((got.float() - want.float()).abs().max())
     if not within_bf16_ulps(got.float(), want.float()):
         raise AssertionError(f"render_forward differs from plain by more "
                              f"than 2 bf16 ULPs (max abs {err})")
-    chunk = rkw["chunk"]
-    visited = int(visits.sum())
-    # data-dependent work: the chunks the tile-wide stop lets each tile
-    # visit (18 B of bf16 features per slot), plus meta and the image
-    nbytes = (visited * chunk * 18 + meta.numel() * 4 + 12
-              + rkw["num_tiles"] * 3 * rkw["n_pix"] * 2)
-    ops = visited * chunk * rkw["n_pix"] * RENDER_OPS_PER_PAIR
+    if not torch.equal(got, again):
+        raise AssertionError("two render_forward launches differ")
+    return err
+
+
+def check_expand(expand, marks, base_in, want):
+    """One build's expand_scan against the plain outputs ``want``: bit-equal,
+    and two launches bit-equal. Returns the max abs difference (0)."""
+    import torch
+
+    got = expand(marks, base_in)
+    again = expand(marks, base_in)
+    torch.cuda.synchronize()
+    err = max(int((g - w).abs().max()) for g, w in zip(got, want))
+    if not all(torch.equal(g, w) for g, w in zip(got, want)):
+        raise AssertionError(f"expand_scan differs from plain: {err}")
+    if not all(torch.equal(g, a) for g, a in zip(got, again)):
+        raise AssertionError("two expand_scan launches differ")
+    return float(err)
+
+
+def check_kernels(cap, card_name):
+    """Each kernel vs its plain version on main-path inputs; returns the
+    kernels-line entries (launch counts filled in later)."""
+    from gsplat_tpu_torch.raster import scan_kernel, tile_kernel
+
+    out = {}
+    (marks, base_in), _ = cap["expand_scan"]
+    k = marks.shape[0]
+    err = check_expand(scan_kernel.expand_scan, marks, base_in,
+                       scan_kernel.expand_scan_plain(marks, base_in))
+    nbytes = 20 * k            # 2 int32 in, 3 int32 out per slot
+    out["expand_scan"] = dict(
+        name="expand_scan", route="cuda",
+        source="gsplat_tpu_torch/csrc/scan_kernels.cu",
+        replaces="gsplat_tpu/raster/scan_kernel.py:202",
+        max_abs_err=err,
+        ms=cuda_ms(lambda: scan_kernel.expand_scan(marks, base_in), 20),
+        plain_ms=cuda_ms(lambda: scan_kernel.expand_scan_plain(marks,
+                                                               base_in), 5),
+        bound_ms=nbytes / MEM_BPS * 1e3, bound_by="bytes", library_ms=None,
+        repeat_bit_equal=True, shape=f"K={k}")
+    log("kernel", card=card_name, **out["expand_scan"])
+
+    (starts, pack, kk), _ = cap["merge_expand"]
+    out["merge_expand"] = check_merge_expand(starts, pack, kk, card_name)
+
+    feat, meta, bg, rkw = render_kwargs(cap["render_forward"])
+    stats = {}
+    want, visits = tile_kernel.render_plain_with_visits(feat, meta, bg,
+                                                        **rkw, stats=stats)
+    err = check_render(tile_kernel.render_forward, feat, meta, bg, rkw, want)
     out["render_forward"] = dict(
         name="render_forward", route="cuda",
         source="gsplat_tpu_torch/csrc/render_kernel.cu",
-        replaces="gsplat_tpu/raster/tile_kernel.py:816",
-        max_abs_err=err,
+        replaces="gsplat_tpu/raster/tile_kernel.py:816", max_abs_err=err,
         ms=cuda_ms(lambda: tile_kernel.render_forward(feat, meta, bg,
                                                       **rkw), 10),
         plain_ms=cuda_ms(lambda: tile_kernel.render_forward_plain(
             feat, meta, bg, **rkw), 2),
-        **dict(zip(("bound_ms", "bound_by"), bound(nbytes, ops))),
-        library_ms=None,
-        shape=f"tiles={rkw['num_tiles']} slots={feat.shape[1]} "
-              f"visited_chunks={visited}")
+        **render_bounds(feat, meta, rkw, visits, stats), library_ms=None,
+        repeat_bit_equal=True)
     log("kernel", card=card_name, **out["render_forward"])
     return out
+
+
+def render_bounds(feat, meta, rkw, visits, stats):
+    """The render's bounds from the plain version's ``stats``: bound_ms
+    over the (pixel, slot) pairs of the visited chunks that pass 1/255 (the
+    work this frame's data needs), bound_all_pairs_ms over every pair of
+    those chunks (the first kernel's count); the cull's kept shares of
+    (16 x 8 warp block, slot) and (8 x 4 sub-block, slot) pairs; the
+    shape."""
+    from gsplat_tpu_torch.raster import tile_kernel
+
+    chunk, n_pix = rkw["chunk"], rkw["n_pix"]
+    visited = int(visits.sum())
+    # the chunks the tile-wide stop lets each tile visit (18 B of bf16
+    # features per slot), plus meta and the image
+    nbytes = (visited * chunk * 18 + meta.numel() * 4 + 12
+              + rkw["num_tiles"] * 3 * n_pix * 2)
+    b_ms, b_by = bound(nbytes, stats["passing"] * RENDER_OPS_PER_PAIR)
+    f32 = feat.float()
+    return dict(
+        bound_ms=b_ms, bound_by=b_by,
+        bound_all_pairs_ms=bound(nbytes, visited * chunk * n_pix
+                                 * RENDER_OPS_PER_PAIR)[0],
+        passing_pairs=stats["passing"],
+        kept_slot_share={
+            "warp_block": kept_slot_share(f32, meta, stats["visited"], rkw,
+                                          tile_kernel.BLEND_WARP_BLOCK),
+            "sub_block": kept_slot_share(f32, meta, stats["visited"], rkw,
+                                         tile_kernel.BLEND_SUB_BLOCK)},
+        shape=f"tiles={rkw['num_tiles']} slots={feat.shape[1]} "
+              f"visited_chunks={visited} "
+              f"pairs={visited * chunk * n_pix}")
+
+
+def merge_bound(p, k):
+    """merge_expand's bound at P starts and K slots: starts and pack read
+    once, three int32 written a slot; one binary-search step an operation."""
+    nbytes = 8 * p + 12 * k
+    ops = k * max(1, math.ceil(math.log2(p + 1)))
+    return dict(zip(("bound_ms", "bound_by"), bound(nbytes, ops)))
 
 
 def check_merge_expand(starts, pack, kk, card_name, **extra):
@@ -388,8 +526,6 @@ def check_merge_expand(starts, pack, kk, card_name, **extra):
     if not all(torch.equal(g, w) for g, w in zip(got, want)):
         raise AssertionError(f"merge_expand differs from plain: {err}")
     p = starts.shape[0]
-    nbytes = 8 * p + 12 * kk   # starts + pack read once, 3 int32 out
-    ops = kk * max(1, math.ceil(math.log2(p + 1)))  # binary-search steps
     entry = dict(
         name="merge_expand", route="cuda",
         source="gsplat_tpu_torch/csrc/scan_kernels.cu",
@@ -398,7 +534,7 @@ def check_merge_expand(starts, pack, kk, card_name, **extra):
         ms=cuda_ms(lambda: scan_kernel.merge_expand(starts, pack, kk), 20),
         plain_ms=cuda_ms(lambda: scan_kernel.merge_expand_plain(
             starts, pack, kk), 5),
-        **dict(zip(("bound_ms", "bound_by"), bound(nbytes, ops))),
+        **merge_bound(p, kk),
         library_ms=None, owners_only_searchsorted_ms=searchsorted_ms(
             starts, kk), shape=f"P={p} K={kk}", **extra)
     log("kernel", card=card_name, **entry)
@@ -1657,11 +1793,8 @@ def main() -> int:
         return 2
     sys.path.insert(0, ROOT)
     try:
-        from gsplat_tpu_torch.model import gaussians
-        from gsplat_tpu_torch.raster import binning, cuda_ext, scan_kernel
-        from gsplat_tpu_torch.raster import rasterize as rast
+        from gsplat_tpu_torch.raster import cuda_ext, scan_kernel
         from gsplat_tpu_torch.raster import tile_kernel
-        from gsplat_tpu_torch.viewer import serve
     except ImportError as e:
         print(f"chip_smoke: run it from a checkout of the repository ({e})",
               file=sys.stderr)
@@ -1676,59 +1809,11 @@ def main() -> int:
     log("build", card=card_name, seconds=time.time() - t0,
         sources=list(cuda_ext.SOURCES), flags=list(cuda_ext.CUDA_FLAGS))
 
-    # ---- model and cameras
-    model_dir = os.path.join(WORK, "model")
-    ply_path = os.path.join(model_dir, "point_cloud", "iteration_1",
-                            "point_cloud.ply")
-    write_scene_ply(ply_path, N_GAUSS, SH_DEGREE, seed=0)
-    state = gaussians.load_ply(ply_path, capacity=CAP_MAX,
-                               max_sh_degree=SH_DEGREE, device=DEVICE)
-    cams = orbit_cameras(8, WIDTH, HEIGHT, DEVICE)
-    p = state.capacity
-
-    # ---- probe: num_dup per camera; capture kernel inputs of camera 0
-    k_expand = 8 * CAP_MAX
-    settings = rast.RasterizeSettings(k_dup=k_expand, inference=True,
-                                      tile_x=serve.TILE_X,
-                                      tile_y=serve.TILE_Y)
-    bg = torch.zeros(3, device=DEVICE)
-    cap = {}
-    store = {k: [] for k in ("expand_scan", "merge_expand", "render_forward",
-                             "_slot_features")}
-    need = []
-    for i, cam in enumerate(cams):
-        with contextlib.ExitStack() as st:
-            if i == 0:
-                st.enter_context(capture(binning, "expand_scan",
-                                         store["expand_scan"]))
-                st.enter_context(capture(rast, "tile_kernel",
-                                         store["render_forward"],
-                                         attr="render_forward"))
-                st.enter_context(capture(rast, "_slot_features",
-                                         store["_slot_features"]))
-            out = rast.rasterize(state.xyz, state.get_scaling(),
-                                 state.get_rotation(),
-                                 state.get_opacity()[:, 0],
-                                 state.get_features(), cam, SH_DEGREE, bg,
-                                 settings, alive=state.alive_mask)
-            need.append(int(out.num_dup))
-    k_merge = MERGE_BUDGET
-    if max(need) > k_merge:   # bench.py's rule: need x 1.02 to 1024
-        k_merge = -(-int(max(need) * 1.02) // 1024) * 1024
-    if not (2 * k_expand >= 7 * p and 2 * k_merge < 7 * p):
-        raise AssertionError("settings do not take both expansion branches")
-    render_fns = {"expand": serve.make_render_fn(state, k_expand, WIDTH,
-                                                 HEIGHT, DEVICE),
-                  "merge": serve.make_render_fn(state, k_merge, WIDTH,
-                                                HEIGHT, DEVICE)}
-    with capture(binning, "merge_expand", store["merge_expand"]):
-        render_fns["merge"](cams[0])
-    for key in ("expand_scan", "merge_expand", "render_forward"):
-        if not store[key]:
-            raise AssertionError(f"the main path did not call {key}")
-        cap[key] = store[key][0]
-    log("probe", card=card_name, gaussians=state.n_alive, capacity=p,
-        num_dup=need, k_dup={"expand": k_expand, "merge": k_merge})
+    # ---- model, cameras, probe
+    sv = probe_serving(card_name)
+    cams, model_dir = sv["cams"], sv["model_dir"]
+    k_expand, k_merge = sv["k_dup"]["expand"], sv["k_dup"]["merge"]
+    render_fns, store, cap = sv["render_fns"], sv["store"], sv["cap"]
 
     # ---- each kernel against its plain version
     kernels = check_kernels(cap, card_name)
@@ -1822,6 +1907,7 @@ def main() -> int:
             name="merge_expand", shape=f"P={starts_t.shape[0]} K={k_t}",
             ms=cuda_ms(lambda: scan_kernel.merge_expand(starts_t, pack_t,
                                                         k_t), 20),
+            **merge_bound(starts_t.shape[0], k_t),
             owners_only_searchsorted_ms=searchsorted_ms(starts_t, k_t))
     train_small(card_name)
 

@@ -11,10 +11,10 @@
 #include <torch/extension.h>
 
 extern "C" {
-int gsplat_expand_scan_tiles(long long k);
+long long gsplat_expand_scan_state_words(long long k);
 int gsplat_expand_scan(const int* marks, const int* base_in, long long k,
-                       int* agg, int* pack_out, int* base_out, int* rank_out,
-                       cudaStream_t stream);
+                       void* state, unsigned long long epoch, int* pack_out,
+                       int* base_out, int* rank_out, cudaStream_t stream);
 int gsplat_merge_expand(const int* starts, const int* pack, int p, int k,
                         int* pack_out, int* base_out, int* rank_out,
                         cudaStream_t stream);
@@ -49,13 +49,16 @@ void check(int err, const char* what) {
               cudaGetErrorString(static_cast<cudaError_t>(err)));
 }
 
-int64_t expand_scan_tiles(int64_t k) { return gsplat_expand_scan_tiles(k); }
+int64_t expand_scan_state_words(int64_t k) {
+  return gsplat_expand_scan_state_words(k);
+}
 
 void expand_scan(torch::Tensor marks, torch::Tensor base_in,
-                 torch::Tensor agg, torch::Tensor pack, torch::Tensor base,
-                 torch::Tensor rank) {
+                 torch::Tensor state, int64_t epoch, torch::Tensor pack,
+                 torch::Tensor base, torch::Tensor rank) {
   check(gsplat_expand_scan(marks.data_ptr<int>(), base_in.data_ptr<int>(),
-                           marks.numel(), agg.data_ptr<int>(),
+                           marks.numel(), state.data_ptr<int64_t>(),
+                           static_cast<unsigned long long>(epoch),
                            pack.data_ptr<int>(), base.data_ptr<int>(),
                            rank.data_ptr<int>(), stream()),
         "expand_scan");
@@ -137,7 +140,7 @@ void multi_cummax(torch::Tensor x, torch::Tensor totals, torch::Tensor out) {
 }  // namespace
 
 PYBIND11_MODULE(TORCH_EXTENSION_NAME, m) {
-  m.def("expand_scan_tiles", &expand_scan_tiles);
+  m.def("expand_scan_state_words", &expand_scan_state_words);
   m.def("expand_scan", &expand_scan);
   m.def("merge_expand", &merge_expand);
   m.def("render_forward", &render_forward);

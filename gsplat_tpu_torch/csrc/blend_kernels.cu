@@ -53,59 +53,21 @@
 //   [warps][chunk][9] shared buffer that the block sums in warp order.
 //   No float atomics: dfeat is the same from run to run.
 //
-// Why the culling is exact. The kernels compute power in the plain
-// version's operation order with __fmul_rn/__fadd_rn (no contraction; the
-// -1/2 is folded into a and c at staging, which is exact in binary
-// floating point), so kernels and plain versions take the same 1/255 and
-// 1e-4 branches. A slot with opa < 1/255 never passes (e^power <= 1 where
-// power <= 0). Otherwise a passing pixel needs q = a dx^2 + 2 b dx dy +
-// c dy^2 <= r^2 = 2 ln(255 opa) up to rounding. The float q differs from
-// the exact one by at most 5 ulp-units of a dx^2 + c dy^2, so for a
-// positive definite conic it is at least dx^2 (ac - b^2 - 10 eps ac) / c;
-// hence |dx| <= sqrt(r^2 c / det') and |dy| <= sqrt(r^2 a / det') with
-// det' = ac - b^2 - kDetSlack * ac. r^2 and the extents are widened by
-// kR2Slack and kExtSlack, far above the error of expf, logf, sqrtf and
-// the divisions. The box test uses the kernel's own float dx: a sub-
-// block's pixels lie between fl(x0 - x) and fl(x1 - x) (rounding is
-// monotone). A conic that is not positive definite (or not finite) is
-// never culled. So a culled pair has alpha < 1/255 and would change
-// nothing: not C, T, the done latch, used or dfeat.
+// Why the culling is exact: see tile_common.cuh, which holds the cull
+// box, the staged record and the warp pixel geometry (shared with the
+// inference render, render_kernel.cu).
 
-#include <climits>
 #include <cuda_runtime.h>
+
+#include "tile_common.cuh"
 
 namespace {
 
-constexpr float kAlphaMin = 1.0f / 255.0f;
-constexpr float kAlphaMax = 0.99f;
-constexpr float kTEps = 1e-4f;
-constexpr int kNumFeat = 9;
 constexpr int kMaxChunk = 128;
 constexpr int kMaskWords = kMaxChunk / 32;
 constexpr int kMaxPixels = 1024;
-constexpr unsigned kFull = 0xffffffffu;
-
-// the geometry: pixels a thread (kPixX columns x kPixY rows of them)
-constexpr int kPix = 4;
-constexpr int kPixY = kPix >= 2 ? 2 : 1;
-constexpr int kPixX = kPix / kPixY;
-constexpr int kBlockX = 8 * kPixX;
-constexpr int kBlockY = 4 * kPixY;
 constexpr int kMaxWarps = kMaxPixels / (32 * kPix);
 constexpr int kMaxThreads = 32 * kMaxWarps;
-constexpr unsigned kAllDone = (1u << kPix) - 1u;
-
-// cull margins (see the note above)
-constexpr float kDetSlack = 1e-5f;
-constexpr float kR2Slack = 1e-5f;
-constexpr float kExtSlack = 1e-4f;
-
-// one staged slot: three 16-byte words
-struct __align__(16) Slot {
-  float4 p;  // x - ox, y - oy, -a/2, b
-  float4 q;  // -c/2, opa, r, g
-  float4 r;  // b, cull half-width hx, half-height hy (-1: never passes), 0
-};
 
 // Shared memory both kernels use: the staged chunk, each warp's sub-block
 // boxes (x0, x1, y0, y1 of its valid pixels) and, per slot, the bits of the
@@ -116,41 +78,6 @@ struct Staging {
   unsigned char sub[kMaxWarps][kMaxChunk];
 };
 
-// first chunk whose tile id >= tile (tile ids ascend along chunk_meta;
-// sentinel chunks carry num_tiles and sort last, so they are never visited)
-__device__ __forceinline__ int first_chunk(const int* chunk_meta,
-                                           int n_chunks, int tile) {
-  int lo = 0, hi = n_chunks;
-  while (lo < hi) {
-    int mid = (lo + hi) >> 1;
-    if ((chunk_meta[mid] >> 2) < tile) {
-      lo = mid + 1;
-    } else {
-      hi = mid;
-    }
-  }
-  return lo;
-}
-
-// half extents of the box outside which opa * e^power < 1/255 for every
-// float dx, dy; -1 when no pixel can pass, +inf when the box is unknown
-__device__ __forceinline__ void cull_extent(float a, float b, float c,
-                                            float opa, float& hx, float& hy) {
-  hx = hy = __int_as_float(0x7f800000);
-  if (opa < kAlphaMin) {
-    hx = hy = -1.0f;
-    return;
-  }
-  const float ac = a * c;
-  const float det = ac - b * b - kDetSlack * ac;
-  if (a > 0.0f && c > 0.0f && det > 0.0f) {
-    const float r2 =
-        fmaxf(2.0f * logf(255.0f * opa), 0.0f) * (1.0f + kR2Slack) + kR2Slack;
-    hx = sqrtf(r2 * c / det) * (1.0f + kExtSlack);
-    hy = sqrtf(r2 * a / det) * (1.0f + kExtSlack);
-  }
-}
-
 // stage one chunk as records (mean to tile coordinates, -a/2, -c/2, the
 // cull extents); thread g reads slot g's nine feature rows
 __device__ __forceinline__ void stage_chunk(const float* __restrict__ feat,
@@ -159,84 +86,10 @@ __device__ __forceinline__ void stage_chunk(const float* __restrict__ feat,
                                             Slot* __restrict__ s) {
   for (int g = threadIdx.x; g < chunk; g += blockDim.x) {
     const float* f = feat + base + g;
-    const float a = f[2 * k_slots], b = f[3 * k_slots], c = f[4 * k_slots];
-    const float opa = f[5 * k_slots];
-    float hx, hy;
-    cull_extent(a, b, c, opa, hx, hy);
-    Slot v;
-    v.p = make_float4(__fsub_rn(f[0], ox), __fsub_rn(f[k_slots], oy),
-                      __fmul_rn(-0.5f, a), b);
-    v.q = make_float4(__fmul_rn(-0.5f, c), opa, f[6 * k_slots],
-                      f[7 * k_slots]);
-    v.r = make_float4(f[8 * k_slots], hx, hy, 0.0f);
-    s[g] = v;
+    s[g] = make_slot(f[0], f[k_slots], f[2 * k_slots], f[3 * k_slots],
+                     f[4 * k_slots], f[5 * k_slots], f[6 * k_slots],
+                     f[7 * k_slots], f[8 * k_slots], ox, oy);
   }
-}
-
-// power in the plain version's operation order and rounding, with
-// ha = -a/2 and hc = -c/2: -(a dx dx + c dy dy)/2 - b dx dy
-__device__ __forceinline__ float power_of(float dx, float dy, float ha,
-                                          float b, float hc) {
-  const float quad = __fadd_rn(__fmul_rn(__fmul_rn(ha, dx), dx),
-                               __fmul_rn(__fmul_rn(hc, dy), dy));
-  return __fsub_rn(quad, __fmul_rn(__fmul_rn(b, dx), dy));
-}
-
-// A thread's pixels: tile-local coordinates and the valid ones as bits.
-struct Pixels {
-  float x[kPix], y[kPix];
-  unsigned valid;
-};
-
-// the thread's pixels; lane 0 writes the warp's sub-block boxes (sub-block
-// j: the j-th pixels of the warp's 32 lanes)
-__device__ __forceinline__ Pixels pixels_of(int warp, int lane, int nbx,
-                                            int n_pix, int tile_x, int tile_y,
-                                            float4* box) {
-  Pixels px;
-  px.valid = 0u;
-#pragma unroll
-  for (int j = 0; j < kPix; ++j) {
-    int x, y;
-    bool ok;
-    if (nbx > 0) {  // compact kBlockX x kBlockY blocks
-      x = (warp % nbx) * kBlockX + (lane & 7) + 8 * (j % kPixX);
-      y = (warp / nbx) * kBlockY + (lane >> 3) + 4 * (j / kPixX);
-      ok = x < tile_x && y < tile_y;
-    } else {  // thin tiles: consecutive pixels
-      const int p = warp * 32 * kPix + lane + 32 * j;
-      x = p % tile_x;
-      y = p / tile_x;
-      ok = p < n_pix;
-    }
-    px.x[j] = static_cast<float>(x);
-    px.y[j] = static_cast<float>(y);
-    if (ok) px.valid |= 1u << j;
-    // a sub-block without valid pixels gets an empty box far away
-    const int x0 = __reduce_min_sync(kFull, ok ? x : INT_MAX);
-    const int x1 = __reduce_max_sync(kFull, ok ? x : INT_MIN);
-    const int y0 = __reduce_min_sync(kFull, ok ? y : INT_MAX);
-    const int y1 = __reduce_max_sync(kFull, ok ? y : INT_MIN);
-    if (lane == 0) {
-      box[j] = make_float4(static_cast<float>(x0), static_cast<float>(x1),
-                           static_cast<float>(y0), static_cast<float>(y1));
-    }
-  }
-  return px;
-}
-
-__device__ __forceinline__ int pixel_index(const Pixels& px, int j,
-                                           int tile_x) {
-  return static_cast<int>(px.y[j]) * tile_x + static_cast<int>(px.x[j]);
-}
-
-// may a pixel of ``box`` (x0, x1, y0, y1) pass for slot s? False only when
-// none can; NaN extents keep the slot.
-__device__ __forceinline__ bool meets(const Slot& s, float4 box) {
-  const float hx = s.r.y, hy = s.r.z;
-  return !(hx < 0.0f || __fsub_rn(box.x, s.p.x) > hx ||
-           __fsub_rn(box.y, s.p.x) < -hx || __fsub_rn(box.z, s.p.y) > hy ||
-           __fsub_rn(box.w, s.p.y) < -hy);
 }
 
 // Per slot of the chunk, the bits of the warp's sub-blocks its cull box
@@ -332,7 +185,7 @@ blend_forward_kernel(const float* __restrict__ feat, long long k_slots,
     T[j] = 1.0f;
     cr[j] = cg[j] = cb[j] = 0.0f;
   }
-  unsigned done = ~px.valid & kAllDone;  // pixels past the tile take no part
+  unsigned done = ~px.valid & kAllPix;  // pixels past the tile take no part
   for (int c = first_chunk(chunk_meta, n_chunks, tile);
        c < n_chunks && (chunk_meta[c] >> 2) == tile; ++c) {
     const long long base = (long long)c * chunk;
@@ -340,7 +193,7 @@ blend_forward_kernel(const float* __restrict__ feat, long long k_slots,
     __syncthreads();
 
     unsigned todo[kMaskWords], hit_bits[kMaskWords];
-    const bool warp_done = __all_sync(kFull, done == kAllDone);
+    const bool warp_done = __all_sync(kFull, done == kAllPix);
     cull_mask(st, warp_done ? 0 : chunk, warp, lane, sub, todo);
     bool walking = !warp_done;
 #pragma unroll
@@ -380,7 +233,7 @@ blend_forward_kernel(const float* __restrict__ feat, long long k_slots,
           hit_bits[w] |= 1u << (g & 31);
           if (lane == 0) s_hits[warp][g] = n;
         }
-        if (__all_sync(kFull, done == kAllDone)) {
+        if (__all_sync(kFull, done == kAllPix)) {
           walking = false;
           break;
         }
@@ -400,7 +253,7 @@ blend_forward_kernel(const float* __restrict__ feat, long long k_slots,
     }
     // barrier + tile-wide decision; also orders this chunk's shared-memory
     // reads before the next chunk's writes
-    if (!__syncthreads_or(done != kAllDone)) break;
+    if (!__syncthreads_or(done != kAllPix)) break;
   }
 
   float* o = ct + (long long)tile * 4 * n_pix;
@@ -450,7 +303,7 @@ blend_backward_kernel(const float* __restrict__ feat, long long k_slots,
       d_tot[j] = d[3 * n_pix + p];
     }
   }
-  unsigned done = ~px.valid & kAllDone;
+  unsigned done = ~px.valid & kAllPix;
   for (int c = first_chunk(chunk_meta, n_chunks, tile);
        c < n_chunks && (chunk_meta[c] >> 2) == tile; ++c) {
     const long long base = (long long)c * chunk;
@@ -458,7 +311,7 @@ blend_backward_kernel(const float* __restrict__ feat, long long k_slots,
     __syncthreads();
 
     unsigned todo[kMaskWords], live_bits[kMaskWords];
-    const bool warp_done = __all_sync(kFull, done == kAllDone);
+    const bool warp_done = __all_sync(kFull, done == kAllPix);
     cull_mask(st, warp_done ? 0 : chunk, warp, lane, sub, todo);
     bool walking = !warp_done;
     float* part = s_part + (long long)warp * chunk * kNumFeat;
@@ -519,7 +372,7 @@ blend_backward_kernel(const float* __restrict__ feat, long long k_slots,
           if (out_k >= 0 && !(lane & 1)) part[g * kNumFeat + out_k] = sum;
           live_bits[w] |= 1u << (g & 31);
         }
-        if (__all_sync(kFull, done == kAllDone)) {
+        if (__all_sync(kFull, done == kAllPix)) {
           walking = false;
           break;
         }
@@ -541,22 +394,8 @@ blend_backward_kernel(const float* __restrict__ feat, long long k_slots,
       }
       dfeat[row * k_slots + base + col] = sum;
     }
-    if (!__syncthreads_or(done != kAllDone)) break;
+    if (!__syncthreads_or(done != kAllPix)) break;
   }
-}
-
-// blocks of kBlockX x kBlockY pixels when they need at most kMaxWarps
-// warps (nbx > 0 block columns), else consecutive pixels (nbx = 0)
-struct Geometry {
-  int nbx;
-  int warps;
-};
-
-Geometry geometry(int n_pix, int tile_x, int tile_y) {
-  const int nbx = (tile_x + kBlockX - 1) / kBlockX;
-  const int nby = (tile_y + kBlockY - 1) / kBlockY;
-  if (nbx * nby <= kMaxWarps) return {nbx, nbx * nby};
-  return {0, (n_pix + 32 * kPix - 1) / (32 * kPix)};
 }
 
 bool bad_args(int n_pix, int chunk) {
@@ -574,7 +413,7 @@ extern "C" int gsplat_blend_forward(const float* feat, long long k_slots,
                                     cudaStream_t stream) {
   if (num_tiles == 0) return 0;
   if (bad_args(n_pix, chunk)) return (int)cudaErrorInvalidValue;
-  const Geometry geo = geometry(n_pix, tile_x, tile_y);
+  const Geometry geo = tile_geometry(n_pix, tile_x, tile_y, kMaxWarps);
   blend_forward_kernel<<<num_tiles, 32 * geo.warps, 0, stream>>>(
       feat, k_slots, chunk_meta, n_chunks, ct, used, n_pix, tile_x, tile_y,
       grid_x, geo.nbx, chunk);
@@ -589,7 +428,7 @@ extern "C" int gsplat_blend_backward(const float* feat, long long k_slots,
                                      cudaStream_t stream) {
   if (num_tiles == 0) return 0;
   if (bad_args(n_pix, chunk)) return (int)cudaErrorInvalidValue;
-  const Geometry geo = geometry(n_pix, tile_x, tile_y);
+  const Geometry geo = tile_geometry(n_pix, tile_x, tile_y, kMaxWarps);
   const int smem = geo.warps * chunk * kNumFeat * (int)sizeof(float);
   cudaError_t err = cudaFuncSetAttribute(
       blend_backward_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,

@@ -2,131 +2,257 @@
 //
 // Replaces gsplat_tpu/raster/tile_kernel.py::_render_kernel (wrapper
 // render_forward). Semantics kept from the TPU kernel: per tile, walk the
-// tile's 128-slot chunks front to back; alpha = min(0.99, opa * e^power),
-// 0 where power > 0 or alpha < 1/255; no per-pixel stop rule; after each
-// chunk the whole tile stops once every pixel has T <= 1e-4; the
-// background is composited in; tiles without chunks are pure background.
-// Output bf16 [num_tiles, 3, n_pix], the JAX layout.
+// tile's chunks front to back; alpha = min(0.99, opa * e^power), 0 where
+// power > 0 or alpha < 1/255; no per-pixel stop rule; after each chunk
+// the whole tile stops once every pixel has T <= 1e-4; the background is
+// composited in; tiles without chunks are pure background. Output bf16
+// [num_tiles, 3, n_pix], the JAX layout. Compositing is sequential per
+// pixel in float32, T *= (1 - alpha): the TPU kernel's bf16 log1p scan and
+// bf16 color matmul were MXU devices and are not carried over.
 //
-// Design. One block per tile; each thread owns up to kMaxPixPerThread
-// pixels (strided by blockDim.x, so stores are coalesced), which covers
-// the server's 128x32 tiles (4096 pixels) with 1024 threads. Each chunk's
-// nine bf16 feature rows are staged once in shared memory as float32, with
-// the mean already shifted to tile-local coordinates (x - ox, as the TPU
-// kernel computes it). Compositing is sequential per pixel in float32,
-// T *= (1 - alpha): the TPU kernel's bf16 log1p scan and bf16 color matmul
-// were MXU devices and are not carried over. The tile-wide stop is
-// __syncthreads_or(T > 1e-4) after each chunk, the TPU kernel's rule.
-// A tile's chunk range is found in-kernel with a lower-bound search over
-// the tile ids in chunk_meta (sorted; sentinel chunks carry num_tiles and
-// sort last, so they are never visited).
+// What bounds it on this card: issue slots. Each (pixel, slot) pair a
+// thread evaluates costs one expf and ~25 float operations; on the serving
+// frame only ~28% of the pairs of the visited chunks pass 1/255, and the
+// bytes (18 B a slot, 6 B a pixel) are far below the memory rate. The
+// busiest tiles hold up to five chunks, which one block walks in series.
+// The design evaluates fewer pairs and spreads each tile over SMs:
 //
-// Bound: for the serving frame, operations. Each (pixel, slot) pair of a
-// visited chunk costs one expf and ~20 float operations; the bytes are the
-// feature stream (18 B/slot) and the image (6 B/pixel).
+// - Each warp owns a compact 16 x 8 pixel block at four pixels a thread
+//   (tile_common.cuh: pixels_of), so a 128 x 32 tile is 8 x 4 warp
+//   blocks; pixels past a ragged tile are masked, and thin tiles take
+//   consecutive pixels a warp. T and the three running sums stay in
+//   registers.
+// - A tile of more than kBlockWarps warps is split over a thread-block
+//   cluster of up to four blocks (kBlockWarps warps each, the tile's warps
+//   in order), which the card places on neighbouring SMs. Every block
+//   stages and walks the chunks for its own pixels. The tile-wide stop is
+//   a vote: each block's __syncthreads_or, published in its shared memory,
+//   read by every block of the cluster through distributed shared memory
+//   after a cluster barrier (barrier.cluster arrive/wait with
+//   release/acquire). All blocks read the same votes, so they leave the
+//   chunk loop together; a last cluster barrier keeps each block's shared
+//   memory alive until the others have read it.
+// - The block stages each chunk once as 48-byte float records decoded from
+//   the bf16 rows (the mean shifted to tile coordinates, -a/2, b, -c/2,
+//   opacity, rgb and the cull extents computed from those decoded values).
+// - Exact culling per warp, as in the training blends: each lane tests one
+//   slot of a 32-slot word against the warp's four 8 x 4 sub-blocks, the
+//   warp ballots the slots that meet any, and walks those in order,
+//   evaluating only the sub-blocks each slot's box meets (the bits come
+//   from the testing lane by a shuffle; a warp-uniform branch). A slot
+//   that meets all four (most kept slots) takes a straight-line path that
+//   evaluates the four pixels side by side: each pixel's chain (quadratic
+//   form, expf, composite) is latency-bound, and the per-sub-block
+//   branches kept the chains apart. On compact blocks that path also
+//   shares the products of the quadratic form between pixels on one row
+//   or column. The proof
+//   that a culled pair would have added nothing is in tile_common.cuh; the
+//   power here is that file's staged form, which equals the plain render's
+//   -0.5 (a dx dx + c dy dy) - b dx dy bit for bit (-1/2 scales exactly).
+//   There is no per-warp stop: a warp whose pixels are all below 1e-4
+//   keeps compositing until the tile stops, as the plain version does.
+//
+// RENDER_BLOCK_WARPS (8: clusters for big tiles; 32: one block per tile),
+// RENDER_CULL (1; 0: every pair evaluated) and RENDER_ILP (1; 0: no
+// straight-line path for slots that meet all four sub-blocks) exist so
+// that scripts/torch_serve_variants.py can build the ablations of this
+// source.
 
+#include <cooperative_groups.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
+#include "tile_common.cuh"
+
+#ifndef RENDER_BLOCK_WARPS
+#define RENDER_BLOCK_WARPS 8
+#endif
+#ifndef RENDER_CULL
+#define RENDER_CULL 1
+#endif
+#ifndef RENDER_ILP
+#define RENDER_ILP 1
+#endif
+
 namespace {
 
-constexpr float kAlphaMin = 1.0f / 255.0f;
-constexpr float kAlphaMax = 0.99f;
-constexpr float kTEps = 1e-4f;
-constexpr int kNumFeat = 9;
-constexpr int kMaxChunk = 256;
-constexpr int kMaxPixPerThread = 4;
+namespace cg = cooperative_groups;
 
-__global__ void __launch_bounds__(1024)
+constexpr int kMaxChunk = 256;
+constexpr int kMaxPixels = 4096;
+constexpr int kTileWarps = kMaxPixels / (32 * kPix);  // 32
+constexpr int kBlockWarps = RENDER_BLOCK_WARPS;
+constexpr int kMaxCluster = kTileWarps / kBlockWarps;
+constexpr bool kCull = RENDER_CULL != 0;
+constexpr bool kIlp = RENDER_ILP != 0;
+static_assert(kTileWarps % kBlockWarps == 0 && kMaxCluster <= 8,
+              "a tile's warps must split over a portable cluster");
+static_assert(kPixX == 2 && kPixY == 2,
+              "the shared terms of the all-four path assume 2 x 2 pixels");
+
+struct RenderStaging {
+  Slot slot[kMaxChunk];
+  float4 box[kBlockWarps][kPix];
+  int vote[2];
+};
+
+__global__ void __launch_bounds__(32 * kBlockWarps)
 render_kernel(const __nv_bfloat16* __restrict__ feat, long long k_slots,
               const int* __restrict__ chunk_meta, int n_chunks,
               const float* __restrict__ bg, __nv_bfloat16* __restrict__ out,
-              int n_pix, int tile_x, int tile_y, int grid_x, int chunk) {
-  __shared__ float s_feat[kNumFeat][kMaxChunk];
-  const int tile = blockIdx.x;
+              int n_pix, int tile_x, int tile_y, int grid_x, int nbx,
+              int chunk) {
+  __shared__ RenderStaging st;
+  cg::cluster_group cluster = cg::this_cluster();
+  const int parts = static_cast<int>(cluster.num_blocks());
+  const int tile = blockIdx.x / parts;
+  const int lane = threadIdx.x & 31;
+  const int lwarp = threadIdx.x >> 5;
+  // the tile's warps in order over the cluster's blocks
+  const int warp =
+      static_cast<int>(cluster.block_rank()) * (blockDim.x >> 5) + lwarp;
   const float ox = (float)((tile % grid_x) * tile_x);
   const float oy = (float)((tile / grid_x) * tile_y);
+  const Pixels px =
+      pixels_of(warp, lane, nbx, n_pix, tile_x, tile_y, st.box[lwarp]);
 
-  // first chunk whose tile id >= tile (tile ids ascend along chunk_meta)
-  int lo = 0, hi = n_chunks;
-  while (lo < hi) {
-    int mid = (lo + hi) >> 1;
-    if ((chunk_meta[mid] >> 2) < tile) {
-      lo = mid + 1;
-    } else {
-      hi = mid;
-    }
-  }
-
-  float px[kMaxPixPerThread], py[kMaxPixPerThread];
-  float T[kMaxPixPerThread], cr[kMaxPixPerThread], cg[kMaxPixPerThread],
-      cb[kMaxPixPerThread];
+  float T[kPix], cr[kPix], cg_[kPix], cb[kPix];
 #pragma unroll
-  for (int j = 0; j < kMaxPixPerThread; ++j) {
-    const int p = threadIdx.x + j * blockDim.x;
-    px[j] = (float)(p % tile_x);
-    py[j] = (float)(p / tile_x);
+  for (int j = 0; j < kPix; ++j) {
     T[j] = 1.0f;
-    cr[j] = cg[j] = cb[j] = 0.0f;
+    cr[j] = cg_[j] = cb[j] = 0.0f;
   }
-
-  for (int c = lo; c < n_chunks && (chunk_meta[c] >> 2) == tile; ++c) {
+  int round = 0;
+  for (int c = first_chunk(chunk_meta, n_chunks, tile);
+       c < n_chunks && (chunk_meta[c] >> 2) == tile; ++c, ++round) {
     const long long base = (long long)c * chunk;
-    for (int i = threadIdx.x; i < kNumFeat * chunk; i += blockDim.x) {
-      const int row = i / chunk;
-      const int col = i - row * chunk;
-      float v = __bfloat162float(feat[row * k_slots + base + col]);
-      if (row == 0) v -= ox;
-      if (row == 1) v -= oy;
-      s_feat[row][col] = v;
+    for (int g = threadIdx.x; g < chunk; g += blockDim.x) {
+      const __nv_bfloat16* f = feat + base + g;
+      float v[kNumFeat];
+#pragma unroll
+      for (int i = 0; i < kNumFeat; ++i) {
+        v[i] = __bfloat162float(f[i * k_slots]);
+      }
+      st.slot[g] = make_slot(v[0], v[1], v[2], v[3], v[4], v[5], v[6], v[7],
+                             v[8], ox, oy);
     }
     __syncthreads();
-    for (int g = 0; g < chunk; ++g) {
-      const float x = s_feat[0][g], y = s_feat[1][g];
-      const float a = s_feat[2][g], b = s_feat[3][g], cc = s_feat[4][g];
-      const float opa = s_feat[5][g];
-      const float r = s_feat[6][g], gr = s_feat[7][g], bl = s_feat[8][g];
+
+    for (int g0 = 0; g0 < chunk; g0 += 32) {
+      // lane l tests slot g0 + l against the warp's sub-blocks
+      unsigned bits = 0u;
+      if (g0 + lane < chunk) {
+        if (kCull) {
+          const Slot s = st.slot[g0 + lane];
 #pragma unroll
-      for (int j = 0; j < kMaxPixPerThread; ++j) {
-        // power in the plain version's operation order and rounding (no
-        // FMA contraction), so both take the same alpha-threshold branches
-        const float dx = __fsub_rn(px[j], x);
-        const float dy = __fsub_rn(py[j], y);
-        const float quad =
-            __fadd_rn(__fmul_rn(__fmul_rn(a, dx), dx),
-                      __fmul_rn(__fmul_rn(cc, dy), dy));
-        const float power =
-            __fsub_rn(__fmul_rn(-0.5f, quad), __fmul_rn(__fmul_rn(b, dx), dy));
-        float alpha = fminf(kAlphaMax, opa * expf(power));
-        if (power > 0.0f || alpha < kAlphaMin) alpha = 0.0f;
-        const float w = alpha * T[j];
-        cr[j] += r * w;
-        cg[j] += gr * w;
-        cb[j] += bl * w;
-        T[j] *= 1.0f - alpha;
+          for (int j = 0; j < kPix; ++j) {
+            bits |= meets(s, st.box[lwarp][j]) ? 1u << j : 0u;
+          }
+        } else {
+          bits = kAllPix;
+        }
+      }
+      unsigned todo = __ballot_sync(kFull, bits != 0u);
+      while (todo) {
+        const int l = __ffs(todo) - 1;
+        todo &= todo - 1u;
+        const unsigned meet = __shfl_sync(kFull, bits, l);
+        const Slot s = st.slot[g0 + l];
+        if (kIlp && meet == kAllPix) {
+          // every sub-block: the four pixels' chains side by side, no
+          // branch between them (alpha 0 leaves colour and T unchanged)
+          float alpha[kPix], pw[kPix];
+          if (nbx > 0) {
+            // compact blocks: pixels 0/2 share x, 1/3 share x, 0/1 and 2/3
+            // share y, so power_of's products are shared (same roundings)
+            const float dx0 = __fsub_rn(px.x[0], s.p.x);
+            const float dx1 = __fsub_rn(px.x[1], s.p.x);
+            const float dy0 = __fsub_rn(px.y[0], s.p.y);
+            const float dy2 = __fsub_rn(px.y[2], s.p.y);
+            const float qx0 = __fmul_rn(__fmul_rn(s.p.z, dx0), dx0);
+            const float qx1 = __fmul_rn(__fmul_rn(s.p.z, dx1), dx1);
+            const float qy0 = __fmul_rn(__fmul_rn(s.q.x, dy0), dy0);
+            const float qy2 = __fmul_rn(__fmul_rn(s.q.x, dy2), dy2);
+            const float bx0 = __fmul_rn(s.p.w, dx0);
+            const float bx1 = __fmul_rn(s.p.w, dx1);
+            pw[0] = __fsub_rn(__fadd_rn(qx0, qy0), __fmul_rn(bx0, dy0));
+            pw[1] = __fsub_rn(__fadd_rn(qx1, qy0), __fmul_rn(bx1, dy0));
+            pw[2] = __fsub_rn(__fadd_rn(qx0, qy2), __fmul_rn(bx0, dy2));
+            pw[3] = __fsub_rn(__fadd_rn(qx1, qy2), __fmul_rn(bx1, dy2));
+          } else {
+#pragma unroll
+            for (int j = 0; j < kPix; ++j) {
+              pw[j] = power_of(__fsub_rn(px.x[j], s.p.x),
+                               __fsub_rn(px.y[j], s.p.y), s.p.z, s.p.w,
+                               s.q.x);
+            }
+          }
+#pragma unroll
+          for (int j = 0; j < kPix; ++j) {
+            const float a = fminf(kAlphaMax, __fmul_rn(s.q.y, expf(pw[j])));
+            alpha[j] = (pw[j] > 0.0f || a < kAlphaMin) ? 0.0f : a;
+          }
+#pragma unroll
+          for (int j = 0; j < kPix; ++j) {
+            const float w = alpha[j] * T[j];
+            cr[j] += s.q.z * w;
+            cg_[j] += s.q.w * w;
+            cb[j] += s.r.x * w;
+            T[j] *= 1.0f - alpha[j];
+          }
+          continue;
+        }
+#pragma unroll
+        for (int j = 0; j < kPix; ++j) {
+          if (!(meet >> j & 1u)) continue;  // warp-uniform
+          const float dx = __fsub_rn(px.x[j], s.p.x);
+          const float dy = __fsub_rn(px.y[j], s.p.y);
+          const float power = power_of(dx, dy, s.p.z, s.p.w, s.q.x);
+          const float alpha =
+              fminf(kAlphaMax, __fmul_rn(s.q.y, expf(power)));
+          if (power > 0.0f || alpha < kAlphaMin) continue;
+          const float w = alpha * T[j];
+          cr[j] += s.q.z * w;
+          cg_[j] += s.q.w * w;
+          cb[j] += s.r.x * w;
+          T[j] *= 1.0f - alpha;
+        }
       }
     }
+
     int live = 0;
 #pragma unroll
-    for (int j = 0; j < kMaxPixPerThread; ++j) {
-      const int p = threadIdx.x + j * blockDim.x;
-      live |= (p < n_pix && T[j] > kTEps);
+    for (int j = 0; j < kPix; ++j) {
+      live |= (px.valid >> j & 1u) && T[j] > kTEps;
     }
-    // barrier + tile-wide decision; also orders this chunk's shared-memory
+    // barrier + the block's vote; also orders this chunk's shared-memory
     // reads before the next chunk's staging writes
-    if (!__syncthreads_or(live)) break;
+    live = __syncthreads_or(live);
+    if (parts > 1) {
+      // votes alternate between two words: a block writes round r + 2's
+      // word only after round r + 1's barrier, which every block reaches
+      // after reading round r's votes
+      if (threadIdx.x == 0) st.vote[round & 1] = live;
+      cluster.sync();
+      int any = 0;
+      if (lane < parts) {
+        any = *cluster.map_shared_rank(&st.vote[round & 1], lane);
+      }
+      live = __any_sync(kFull, any);
+    }
+    if (!live) break;
   }
+  if (parts > 1) cluster.sync();  // no block leaves while its votes are read
 
   const float bg_r = bg[0], bg_g = bg[1], bg_b = bg[2];
   __nv_bfloat16* o = out + (long long)tile * 3 * n_pix;
 #pragma unroll
-  for (int j = 0; j < kMaxPixPerThread; ++j) {
-    const int p = threadIdx.x + j * blockDim.x;
-    if (p < n_pix) {
-      o[p] = __float2bfloat16(cr[j] + T[j] * bg_r);
-      o[n_pix + p] = __float2bfloat16(cg[j] + T[j] * bg_g);
-      o[2 * n_pix + p] = __float2bfloat16(cb[j] + T[j] * bg_b);
-    }
+  for (int j = 0; j < kPix; ++j) {
+    if (!(px.valid >> j & 1u)) continue;
+    const int p = pixel_index(px, j, tile_x);
+    o[p] = __float2bfloat16(cr[j] + T[j] * bg_r);
+    o[n_pix + p] = __float2bfloat16(cg_[j] + T[j] * bg_g);
+    o[2 * n_pix + p] = __float2bfloat16(cb[j] + T[j] * bg_b);
   }
 }
 
@@ -140,14 +266,32 @@ extern "C" int gsplat_render_forward(const void* feat, long long k_slots,
                                      int tile_y, int grid_x, int chunk,
                                      cudaStream_t stream) {
   if (num_tiles == 0) return 0;
-  if (chunk > kMaxChunk || n_pix > 1024 * kMaxPixPerThread) {
+  if (chunk > kMaxChunk || chunk <= 0 || n_pix > kMaxPixels || n_pix <= 0) {
     return (int)cudaErrorInvalidValue;
   }
-  int threads = (n_pix + kMaxPixPerThread - 1) / kMaxPixPerThread;
-  threads = ((threads + 31) / 32) * 32;
-  render_kernel<<<num_tiles, threads, 0, stream>>>(
-      static_cast<const __nv_bfloat16*>(feat), k_slots, chunk_meta, n_chunks,
-      bg, static_cast<__nv_bfloat16*>(out), n_pix, tile_x, tile_y, grid_x,
-      chunk);
+  const Geometry geo = tile_geometry(n_pix, tile_x, tile_y, kTileWarps);
+  // blocks a tile: a power of two (a cluster's blocks), the last one's
+  // spare warps hold no pixels
+  int parts = 1;
+  while (parts * kBlockWarps < geo.warps) parts *= 2;
+  const int warps = parts == 1 ? geo.warps : kBlockWarps;
+
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(num_tiles * parts);
+  cfg.blockDim = dim3(32 * warps);
+  cfg.dynamicSmemBytes = 0;
+  cfg.stream = stream;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = parts;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  cudaError_t err = cudaLaunchKernelEx(
+      &cfg, render_kernel, static_cast<const __nv_bfloat16*>(feat), k_slots,
+      chunk_meta, n_chunks, bg, static_cast<__nv_bfloat16*>(out), n_pix,
+      tile_x, tile_y, grid_x, geo.nbx, chunk);
+  if (err != cudaSuccess) return (int)err;
   return (int)cudaGetLastError();
 }

@@ -4,14 +4,37 @@
 // (wrapper expand_scan). It is one pass over the K slots computing three
 // associative scans: the latest nonzero mark ("pack"), the running max of
 // base_in floored at 0 ("base"), and the 1-based running count of nonzero
-// marks ("rank"). The TPU kernel carried its running values across a
-// sequential grid in SMEM; blocks on the card run in no order, so the scan
-// is two launches: a reduction of each 4096-slot tile to one aggregate,
-// then a scan in which every block first folds the aggregates of the tiles
-// before it and then scans its own tile. Bound: bytes. Each slot reads two
-// int32 and writes three (20 B/slot), and the tile loads and stores are
-// warp-contiguous (lane l touches slot base + 32 i + l).
+// marks ("rank"). Bound: bytes, 20 B a slot (two int32 read, three
+// written). The TPU kernel carried its running values across a sequential
+// grid in SMEM; blocks on the card run in no order, so the carry between
+// 4096-slot tiles goes through a single-pass chained scan with decoupled
+// look-back (Merrill & Garland), one launch that reads each slot once:
 //
+// - A block takes its tile from an atomic ticket counter, so a tile's
+//   predecessors were all taken by blocks that are already running, and
+//   its look-back cannot wait on a block that is not resident. The block
+//   that takes the last ticket puts the counter back to 0 for the next
+//   call (every other ticket has been handed out by then).
+// - It loads the tile once with 16-byte loads (lane l of a warp holds four
+//   consecutive slots of each 128-slot row of the warp's 512 slots), scans
+//   its four slots in registers, then the row across the warp by shuffles,
+//   then the warps' totals in shared memory.
+// - Thread 0 publishes the tile's aggregate, warp 0 looks back over the
+//   32 tiles before it at a time (status words read with ld.acquire.gpu;
+//   the nearest inclusive prefix, combined in slot order with the
+//   aggregates after it) and publishes the tile's inclusive prefix. Each
+//   value is stored before its status word with st.release.gpu, so a
+//   reader that sees the status sees the value; values are read through
+//   L2 (__ldcg).
+// - Status words carry the call's epoch beside the flag, so words left by
+//   an earlier call read as "not yet published" and nothing has to be
+//   cleared between calls: the wrapper keeps one zero-initialised state
+//   buffer per device and stream and counts the epochs.
+// - Every thread writes its slots' three outputs once, with 16-byte stores.
+//
+// Tiles past K's end and buffers that are not 16-byte aligned take scalar
+// loads and stores for the affected rows.
+
 // merge_expand replaces scan_kernel.py::_merge_kernel (wrapper
 // merge_expand). Slot d's owner is the last g with starts[g] <= d, starts
 // ascending. The TPU kernel resolved it with a byte-split one-hot matmul
@@ -26,13 +49,12 @@
 // element's error stays at within-block scale instead of growing with the
 // running total (segment differences of the cumsum expose that error, see
 // rasterize._segsum_reduce). The TPU kernel carried (sum, compensation)
-// across a sequential grid; here it is the aggregate-then-fold design of
-// expand_scan: launch 1 scans every (row, block) and stores the block's
-// total; launch 2 has warp 0 of each block fold the compensated sum of the
-// totals before it (each lane folds a strided share, the lanes combine in
-// a fixed tree), then scans its own block and adds the carry. Bound:
-// bytes, 8 B per element (one float read, one written); launch 2 reads the
-// input a second time.
+// across a sequential grid; here it is two launches: launch 1 scans every
+// (row, block) and stores the block's total; launch 2 has warp 0 of each
+// block fold the compensated sum of the totals before it (each lane folds
+// a strided share, the lanes combine in a fixed tree), then scans its own
+// block and adds the carry. Bound: bytes, 8 B per element (one float read,
+// one written); launch 2 reads the input a second time.
 //
 // multi_cummax replaces scan_kernel.py::_kernel (wrapper multi_cummax): the
 // inclusive int32 cummax of n equal-length rows. The TPU kernel carried each
@@ -91,108 +113,199 @@ __device__ __forceinline__ Owner warp_inclusive_scan(Owner v, int lane) {
   return v;
 }
 
-__device__ __forceinline__ Owner load_slot(const int* marks,
-                                           const int* base_in, long long idx,
-                                           long long k) {
-  if (idx >= k) return identity();
-  int m = marks[idx];
-  return Owner{m, base_in[idx], m != 0 ? 1 : 0};
+// ---- expand_scan
+
+constexpr int kFlagAggregate = 1;
+constexpr int kFlagPrefix = 2;
+constexpr int kRowSlots = 32 * 4;  // one 16-byte load a lane
+constexpr int kRows = kScanItems / 4;
+
+// a tile's published state: 32 bytes, status word first
+struct TileState {
+  unsigned long long status;  // epoch << 2 | flag
+  int agg[3];                 // the tile's own aggregate
+  int incl[3];                // its inclusive prefix
+};
+static_assert(sizeof(TileState) == 32, "gsplat_expand_scan_state_words");
+
+__device__ __forceinline__ unsigned long long load_acquire(
+    const unsigned long long* p) {
+  unsigned long long v;
+  asm volatile("ld.acquire.gpu.global.u64 %0, [%1];"
+               : "=l"(v)
+               : "l"(p)
+               : "memory");
+  return v;
 }
 
-// Scans tile `tile` in slot order; returns the tile's total (valid in every
-// thread) and leaves each slot's tile-local inclusive value in vals[].
-__device__ __forceinline__ Owner scan_tile(const int* marks,
-                                           const int* base_in, long long k,
-                                           long long tile,
-                                           Owner (&vals)[kScanItems],
-                                           Owner* warp_tot) {
-  const int lane = threadIdx.x & 31;
-  const int warp = threadIdx.x >> 5;
-  const long long warp_base =
-      tile * kScanTile + (long long)warp * 32 * kScanItems;
-  Owner run = identity();
+__device__ __forceinline__ void store_release(unsigned long long* p,
+                                              unsigned long long v) {
+  asm volatile("st.release.gpu.global.u64 [%0], %1;" ::"l"(p), "l"(v)
+               : "memory");
+}
+
+// a value, then its status word (release: the value is seen first)
+__device__ __forceinline__ void publish(TileState* s, int* dst,
+                                        const Owner& v,
+                                        unsigned long long status) {
+  __stcg(dst, v.pack);
+  __stcg(dst + 1, v.base);
+  __stcg(dst + 2, v.rank);
+  store_release(&s->status, status);
+}
+
+__device__ __forceinline__ Owner shfl_down(const Owner& v, int off) {
+  return Owner{__shfl_down_sync(kFull, v.pack, off),
+               __shfl_down_sync(kFull, v.base, off),
+               __shfl_down_sync(kFull, v.rank, off)};
+}
+
+// The exclusive prefix of tile ``tile`` > 0, by warp 0: lane l reads tile
+// tile - 32 + l of each window (tiles before 0 count as the identity with
+// a prefix), waits until it is published in this epoch, and the window's
+// values from its last prefix on are combined in slot order.
+__device__ Owner look_back(const TileState* state, long long tile,
+                           unsigned long long epoch, int lane) {
+  Owner run = identity();  // the tiles after the current window
+  for (long long pred = tile - 32 + lane;; pred -= 32) {
+    int flag = kFlagPrefix;
+    Owner v = identity();
+    if (pred >= 0) {
+      const TileState* s = state + pred;
+      unsigned long long st;
+      do {
+        st = load_acquire(&s->status);
+      } while ((st >> 2) != epoch);
+      flag = static_cast<int>(st & 3u);
+      const int* src = flag == kFlagPrefix ? s->incl : s->agg;
+      v = Owner{__ldcg(src), __ldcg(src + 1), __ldcg(src + 2)};
+    }
+    const unsigned prefixes = __ballot_sync(kFull, flag == kFlagPrefix);
+    const int start = prefixes ? 31 - __clz(prefixes) : 0;
+    Owner x = lane >= start ? v : identity();
+    // ordered reduction: lane l ends with lanes [l, l + 2 off) combined
 #pragma unroll
-  for (int i = 0; i < kScanItems; ++i) {
-    Owner x = load_slot(marks, base_in, warp_base + 32 * i + lane, k);
-    x = combine(run, warp_inclusive_scan(x, lane));
-    vals[i] = x;
-    run = shfl_idx(x, 31);
+    for (int off = 1; off < 32; off <<= 1) {
+      const Owner y = shfl_down(x, off);
+      if (lane + off < 32) x = combine(x, y);
+    }
+    run = combine(shfl_idx(x, 0), run);
+    if (prefixes) return run;
   }
-  if (lane == 0) warp_tot[warp] = run;
-  __syncthreads();
-  Owner total = identity();
-  for (int w = 0; w < kScanWarps; ++w) total = combine(total, warp_tot[w]);
-  return total;
 }
 
-__global__ void __launch_bounds__(kScanThreads)
-expand_reduce_kernel(const int* __restrict__ marks,
-                     const int* __restrict__ base_in, long long k,
-                     Owner* __restrict__ agg) {
-  __shared__ Owner warp_tot[kScanWarps];
-  Owner vals[kScanItems];
-  Owner total = scan_tile(marks, base_in, k, blockIdx.x, vals, warp_tot);
-  if (threadIdx.x == 0) agg[blockIdx.x] = total;
+// four slots from idx: one 16-byte load where they all exist and the
+// buffer is aligned, else scalar loads (0 past the end)
+__device__ __forceinline__ int4 load4(const int* __restrict__ p,
+                                      long long idx, long long k, bool vec) {
+  if (vec && idx + 3 < k) return __ldg(reinterpret_cast<const int4*>(p + idx));
+  int4 v = make_int4(0, 0, 0, 0);
+  if (idx < k) v.x = p[idx];
+  if (idx + 1 < k) v.y = p[idx + 1];
+  if (idx + 2 < k) v.z = p[idx + 2];
+  if (idx + 3 < k) v.w = p[idx + 3];
+  return v;
+}
+
+__device__ __forceinline__ void store4(int* __restrict__ p, long long idx,
+                                       long long k, bool vec, int4 v) {
+  if (vec && idx + 3 < k) {
+    *reinterpret_cast<int4*>(p + idx) = v;
+    return;
+  }
+  if (idx < k) p[idx] = v.x;
+  if (idx + 1 < k) p[idx + 1] = v.y;
+  if (idx + 2 < k) p[idx + 2] = v.z;
+  if (idx + 3 < k) p[idx + 3] = v.w;
+}
+
+__device__ __forceinline__ Owner slot_of(int mark, int base) {
+  return Owner{mark, base, mark != 0 ? 1 : 0};
 }
 
 __global__ void __launch_bounds__(kScanThreads)
 expand_scan_kernel(const int* __restrict__ marks,
                    const int* __restrict__ base_in, long long k,
-                   const Owner* __restrict__ agg, int* __restrict__ pack_out,
-                   int* __restrict__ base_out, int* __restrict__ rank_out) {
-  __shared__ Owner warp_tot[kScanWarps];
-  __shared__ Owner part[kScanWarps];
-  __shared__ int part_last[kScanWarps];
+                   unsigned long long* __restrict__ ticket,
+                   TileState* __restrict__ state, int tiles,
+                   unsigned long long epoch, bool vec,
+                   int* __restrict__ pack_out, int* __restrict__ base_out,
+                   int* __restrict__ rank_out) {
+  __shared__ long long s_tile;
+  __shared__ Owner s_warp[kScanWarps];
+  __shared__ Owner s_carry;
   const int lane = threadIdx.x & 31;
   const int warp = threadIdx.x >> 5;
-  const long long tile = blockIdx.x;
-
-  // 1. Fold the aggregates of tiles [0, tile). base and rank commute; the
-  //    latest nonzero pack is the pack of the highest such tile, so track
-  //    that tile's index and reduce by max.
-  int rank_sum = 0, base_max = 0, last = -1;
-  for (long long j = threadIdx.x; j < tile; j += kScanThreads) {
-    Owner a = agg[j];
-    rank_sum += a.rank;
-    base_max = max(base_max, a.base);
-    if (a.pack != 0) last = (int)j;
-  }
-#pragma unroll
-  for (int off = 16; off > 0; off >>= 1) {
-    rank_sum += __shfl_down_sync(kFull, rank_sum, off);
-    base_max = max(base_max, __shfl_down_sync(kFull, base_max, off));
-    last = max(last, __shfl_down_sync(kFull, last, off));
-  }
-  if (lane == 0) {
-    part[warp] = Owner{0, base_max, rank_sum};
-    part_last[warp] = last;
+  if (threadIdx.x == 0) {
+    const unsigned long long t = atomicAdd(ticket, 1ull);
+    if (t == static_cast<unsigned long long>(tiles - 1)) {
+      atomicExch(ticket, 0ull);
+    }
+    s_tile = static_cast<long long>(t);
   }
   __syncthreads();
-  Owner carry = identity();
-  int carry_last = -1;
-  for (int w = 0; w < kScanWarps; ++w) {
-    carry.rank += part[w].rank;
-    carry.base = max(carry.base, part[w].base);
-    carry_last = max(carry_last, part_last[w]);
-  }
-  if (carry_last >= 0) carry.pack = agg[carry_last].pack;
-
-  // 2. Scan this tile and add the carry.
-  Owner vals[kScanItems];
-  scan_tile(marks, base_in, k, tile, vals, warp_tot);
-  Owner prefix = carry;
-  for (int w = 0; w < warp; ++w) prefix = combine(prefix, warp_tot[w]);
+  const long long tile = s_tile;
   const long long warp_base =
       tile * kScanTile + (long long)warp * 32 * kScanItems;
+
+  // 1. Load and scan: row i of the warp is slots warp_base + 128 i ...;
+  //    lane l holds its four slots 4 l .. 4 l + 3, inclusive in vals[].
+  Owner vals[kScanItems];
+  Owner run = identity();
 #pragma unroll
-  for (int i = 0; i < kScanItems; ++i) {
-    long long idx = warp_base + 32 * i + lane;
-    if (idx < k) {
-      Owner v = combine(prefix, vals[i]);
-      pack_out[idx] = v.pack;
-      base_out[idx] = v.base;
-      rank_out[idx] = v.rank;
+  for (int i = 0; i < kRows; ++i) {
+    const long long idx = warp_base + (long long)i * kRowSlots + 4 * lane;
+    const int4 m = load4(marks, idx, k, vec);
+    const int4 b = load4(base_in, idx, k, vec);
+    Owner x[4] = {slot_of(m.x, b.x), slot_of(m.y, b.y), slot_of(m.z, b.z),
+                  slot_of(m.w, b.w)};
+#pragma unroll
+    for (int q = 1; q < 4; ++q) x[q] = combine(x[q - 1], x[q]);
+    const Owner incl = warp_inclusive_scan(x[3], lane);
+    Owner excl = shfl_up(incl, 1);
+    excl = combine(run, lane == 0 ? identity() : excl);
+#pragma unroll
+    for (int q = 0; q < 4; ++q) vals[4 * i + q] = combine(excl, x[q]);
+    run = combine(run, shfl_idx(incl, 31));
+  }
+  if (lane == 0) s_warp[warp] = run;
+  __syncthreads();
+
+  // 2. The tile's carry: publish, look back, publish the prefix.
+  if (warp == 0) {
+    Owner total = identity();
+    for (int w = 0; w < kScanWarps; ++w) total = combine(total, s_warp[w]);
+    TileState* s = state + tile;
+    Owner carry = identity();
+    if (tile == 0) {
+      if (lane == 0) publish(s, s->incl, total, epoch << 2 | kFlagPrefix);
+    } else {
+      if (lane == 0) publish(s, s->agg, total, epoch << 2 | kFlagAggregate);
+      carry = look_back(state, tile, epoch, lane);
+      if (lane == 0) {
+        publish(s, s->incl, combine(carry, total),
+                epoch << 2 | kFlagPrefix);
+      }
     }
+    if (lane == 0) s_carry = carry;
+  }
+  __syncthreads();
+
+  // 3. Write: the carry, the warps before this one, the slot's own value.
+  Owner prefix = s_carry;
+  for (int w = 0; w < warp; ++w) prefix = combine(prefix, s_warp[w]);
+#pragma unroll
+  for (int i = 0; i < kRows; ++i) {
+    const long long idx = warp_base + (long long)i * kRowSlots + 4 * lane;
+    Owner v[4];
+#pragma unroll
+    for (int q = 0; q < 4; ++q) v[q] = combine(prefix, vals[4 * i + q]);
+    store4(pack_out, idx, k, vec,
+           make_int4(v[0].pack, v[1].pack, v[2].pack, v[3].pack));
+    store4(base_out, idx, k, vec,
+           make_int4(v[0].base, v[1].base, v[2].base, v[3].base));
+    store4(rank_out, idx, k, vec,
+           make_int4(v[0].rank, v[1].rank, v[2].rank, v[3].rank));
   }
 }
 
@@ -438,24 +551,37 @@ extern "C" int gsplat_multi_cummax(const int* x, int n, long long k,
   return (int)cudaGetLastError();
 }
 
-extern "C" int gsplat_expand_scan_tiles(long long k) {
-  return (int)((k + kScanTile - 1) / kScanTile);
+// int64 words of the state buffer expand_scan takes: the ticket counter
+// (padded to 32 bytes), then one TileState a tile. The caller zero-fills it
+// once and passes a larger epoch on every later call that uses it.
+extern "C" long long gsplat_expand_scan_state_words(long long k) {
+  const long long tiles = (k + kScanTile - 1) / kScanTile;
+  return 4 * (tiles + 1);
 }
 
-// agg: scratch of gsplat_expand_scan_tiles(k) * 3 int32
+// state: gsplat_expand_scan_state_words(k) int64, epoch >= 1 and larger
+// than on every earlier call with this buffer; calls sharing a buffer must
+// not overlap (one stream)
 extern "C" int gsplat_expand_scan(const int* marks, const int* base_in,
-                                  long long k, int* agg, int* pack_out,
+                                  long long k, void* state,
+                                  unsigned long long epoch, int* pack_out,
                                   int* base_out, int* rank_out,
                                   cudaStream_t stream) {
-  const int tiles = gsplat_expand_scan_tiles(k);
+  const long long tiles = (k + kScanTile - 1) / kScanTile;
   if (tiles == 0) return 0;
-  Owner* agg_o = reinterpret_cast<Owner*>(agg);
-  expand_reduce_kernel<<<tiles, kScanThreads, 0, stream>>>(marks, base_in, k,
-                                                          agg_o);
-  cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return (int)err;
-  expand_scan_kernel<<<tiles, kScanThreads, 0, stream>>>(
-      marks, base_in, k, agg_o, pack_out, base_out, rank_out);
+  if (tiles > 0x7fffffffLL || epoch == 0 || epoch >= (1ull << 62)) {
+    return (int)cudaErrorInvalidValue;
+  }
+  auto aligned = [](const void* p) {
+    return (reinterpret_cast<unsigned long long>(p) & 15u) == 0;
+  };
+  const bool vec = aligned(marks) && aligned(base_in) && aligned(pack_out) &&
+                   aligned(base_out) && aligned(rank_out);
+  auto* ticket = static_cast<unsigned long long*>(state);
+  auto* tile_state = reinterpret_cast<TileState*>(ticket + 4);
+  expand_scan_kernel<<<(unsigned)tiles, kScanThreads, 0, stream>>>(
+      marks, base_in, k, ticket, tile_state, (int)tiles, epoch, vec,
+      pack_out, base_out, rank_out);
   return (int)cudaGetLastError();
 }
 

@@ -2,8 +2,9 @@
 
 All sources go to one ``torch.utils.cpp_extension.load`` call at first use,
 for sm_90a. Only ``binding.cpp`` includes PyTorch's headers (compiled by the
-host compiler); the ``.cu`` files have a plain C interface, so nvcc builds
-them in seconds. The build lands in ``build/torch_kernels`` at the root of
+host compiler); the ``.cu`` files (and ``tile_common.cuh``, which the render
+and blend kernels include) have a plain C interface, so nvcc builds them in
+seconds. The build lands in ``build/torch_kernels`` at the root of
 the checkout (listed in .gitignore); ``load`` reuses it while the sources
 are unchanged.
 """

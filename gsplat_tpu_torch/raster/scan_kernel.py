@@ -11,7 +11,10 @@ it. The source notes in the .cu file give each kernel's bound and design.
 - ``expand_scan`` replaces ``scan_kernel._expand_kernel``: one pass over
   the slots computing the latest nonzero mark, the running max of
   ``base_in`` (floored at 0, as the TPU carry starts at 0) and the 1-based
-  running count of nonzero marks.
+  running count of nonzero marks. The kernel is a single-pass chained
+  scan; its look-back state lives in a buffer kept per device and stream
+  (``_lookback_state``), zero-filled once and tagged with a new epoch on
+  every call, so a call launches the one kernel and nothing else.
 - ``merge_expand`` replaces ``scan_kernel._merge_kernel``: slot d's owner
   is the last g with ``starts[g] <= d`` (``starts`` ascending); returns
   ``pack[g]``, ``starts[g]`` and ``g + 1`` (all 0 where no start is <= d).
@@ -57,6 +60,24 @@ def expand_scan_plain(marks: torch.Tensor, base_in: torch.Tensor):
     return pack, base, rank
 
 
+# (device index, stream id) -> [int64 state buffer, last epoch]
+_LOOKBACK: dict = {}
+
+
+def _lookback_state(device: torch.device, words: int):
+    """The look-back state buffer of ``device``'s current stream, at least
+    ``words`` int64 long, and the epoch for the next call. A new or larger
+    buffer is zero-filled (its epochs start again at 1); calls on one
+    stream never overlap, so they can share it."""
+    key = (device.index, torch.cuda.current_stream(device).cuda_stream)
+    entry = _LOOKBACK.get(key)
+    if entry is None or entry[0].numel() < words:
+        entry = _LOOKBACK[key] = [torch.zeros(words, dtype=torch.int64,
+                                              device=device), 0]
+    entry[1] += 1
+    return entry[0], entry[1]
+
+
 def expand_scan(marks: torch.Tensor, base_in: torch.Tensor):
     """(pack, base, rank) int32 [K] — see the module docstring."""
     device = marks.device
@@ -68,10 +89,9 @@ def expand_scan(marks: torch.Tensor, base_in: torch.Tensor):
         return expand_scan_plain(marks, base_in)
     ext = cuda_ext.load()
     k = marks.shape[0]
-    agg = torch.empty(3 * ext.expand_scan_tiles(k), dtype=torch.int32,
-                      device=device)
+    state, epoch = _lookback_state(device, ext.expand_scan_state_words(k))
     outs = [torch.empty_like(marks) for _ in range(3)]
-    ext.expand_scan(marks, base_in, agg, *outs)
+    ext.expand_scan(marks, base_in, state, epoch, *outs)
     expand_scan.launches += 1
     return tuple(outs)
 

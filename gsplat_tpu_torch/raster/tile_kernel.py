@@ -4,9 +4,9 @@ training blend ``tile_blend`` over ``tile_blend_forward`` (TPU
 ``_fwd_kernel``) and ``tile_blend_backward`` (TPU ``_bwd_kernel``).
 
 Each wrapper takes a CUDA tensor to its hand-written Hopper kernel
-(``csrc/render_kernel.cu``, ``csrc/blend_kernels.cu``) and adds one to its
-``launches`` count, and a CPU tensor to the plain PyTorch version beside
-it.
+(``csrc/render_kernel.cu``, ``csrc/blend_kernels.cu``; both cull exactly
+by the rule in ``csrc/tile_common.cuh``) and adds one to its ``launches``
+count, and a CPU tensor to the plain PyTorch version beside it.
 
 ``render_forward`` (tile_kernel.py:816-897): per tile, chunks front to
 back; alpha = min(ALPHA_MAX, opa * e^power), 0 where power > 0 or
@@ -41,7 +41,7 @@ T_EPS = 1e-4
 
 NUM_FEAT = 9
 MAX_CHUNK = 256     # shared-memory staging limit of the CUDA render
-MAX_PIXELS = 4096   # 1024 threads x 4 pixels per tile
+MAX_PIXELS = 4096   # 32 warps x 128 pixels (4 a thread) per tile
 BLEND_MAX_CHUNK = 128    # the training blend kernels' staging limit
 BLEND_MAX_PIXELS = 1024  # the training blend kernels' tile limit
 
@@ -58,10 +58,12 @@ def _tile_chunk_ranges(chunk_meta: torch.Tensor, num_tiles: int):
 
 def render_plain_with_visits(feat, chunk_meta, bg, num_tiles: int,
                              n_pix: int, tile_x: int, tile_y: int,
-                             grid_x: int, chunk: int):
+                             grid_x: int, chunk: int, stats=None):
     """Plain PyTorch render; also returns each tile's count of visited
     chunks (the work the tile-wide stop leaves). ``feat`` may be bf16 or
-    float32; compositing is float32, sequential in slot order."""
+    float32; compositing is float32, sequential in slot order. A ``stats``
+    dict receives the visited chunk indices and the (pixel, slot) pairs of
+    the visited chunks that pass alpha >= 1/255."""
     dev = feat.device
     f = feat.float().reshape(NUM_FEAT, -1, chunk)       # [9, n_chunks, C]
     first, n_ch = _tile_chunk_ranges(chunk_meta, num_tiles)
@@ -92,6 +94,10 @@ def render_plain_with_visits(feat, chunk_meta, bg, num_tiles: int,
                                 max=ALPHA_MAX)
             alpha = torch.where((power > 0.0) | (alpha < ALPHA_MIN),
                                 torch.zeros_like(alpha), alpha)
+            if stats is not None:
+                stats["passing"] = stats.get("passing", 0) + int(
+                    (alpha > 0).sum())
+                stats.setdefault("visited", []).append(first[idx] + j)
             t_in = trans[idx]                               # [A, n_pix]
             t_incl = t_in[:, None, :] * torch.cumprod(1.0 - alpha, dim=1)
             t_excl = torch.cat([t_in[:, None, :], t_incl[:, :-1]], dim=1)
@@ -295,10 +301,10 @@ def tile_blend_backward_plain(feat, chunk_meta, dpack, num_tiles: int,
                         grid_x, chunk, dpack=dpack)
 
 
-# The blend kernels' cull rule and warp geometry, transcribed from
-# csrc/blend_kernels.cu (cull_extent, meets, kPix, kDetSlack, kR2Slack,
-# kExtSlack) for the tests and chip_smoke.py's cull statistics; no path
-# runs them, and they change with the kernel's rule.
+# The tile kernels' cull rule and warp geometry (the render and both
+# blends), transcribed from csrc/tile_common.cuh (cull_extent, meets, kPix,
+# kDetSlack, kR2Slack, kExtSlack) for the tests and chip_smoke.py's cull
+# statistics; no path runs them, and they change with the kernels' rule.
 BLEND_SUB_BLOCK = (8, 4)    # the pixels a warp's 8 x 4 lanes hold at once
 BLEND_WARP_BLOCK = (16, 8)  # a warp's pixels: four a thread, 2 x 2 sub-blocks
 BLEND_CULL_SLACK = (1e-5, 1e-5, 1e-4)   # on det, r^2 and the extents

@@ -9,9 +9,11 @@ Run from the root of a checkout:
 It builds ``gsplat_tpu_torch/csrc/blend_kernels.cu`` (as ``current``) and
 every ``--source``, a file with the same C entry points (an earlier
 version of the source, or an ablation of it), each with nvcc and
-``raster/cuda_ext.py``'s flags into a shared library called through its
-plain C interface (ctypes); ``-Xptxas=-v`` reports each build's
-registers, spills and shared memory. It then records the blend inputs of
+``raster/cuda_ext.py``'s flags (``csrc/`` on the include path) into a
+shared library called through its plain C interface (ctypes);
+``-Xptxas=-v`` reports each build's registers, spills and shared memory.
+``scripts/torch_serve_variants.py`` does the same for the serving
+kernels. It then records the blend inputs of
 the first training step of chip_smoke.py's three training settings
 (100k-800x800, 1m-1296x840, swin-200k-1280x720) through chip_smoke.py's
 own setup, holds every build against the plain versions with
@@ -32,7 +34,8 @@ import time
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, ROOT)
-SOURCE = os.path.join(ROOT, "gsplat_tpu_torch", "csrc", "blend_kernels.cu")
+CSRC = os.path.join(ROOT, "gsplat_tpu_torch", "csrc")
+SOURCE = os.path.join(CSRC, "blend_kernels.cu")
 WORK = os.path.join(ROOT, "build", "blend_variants")
 # gsplat_blend_forward / gsplat_blend_backward: feat, k_slots, chunk_meta,
 # n_chunks, two output or input pointers, six ints, the stream
@@ -41,8 +44,11 @@ ARGS = ([ctypes.c_void_p, ctypes.c_longlong, ctypes.c_void_p, ctypes.c_int,
         + [ctypes.c_void_p])
 
 
-def build_all(sources):
-    """{name: (.so path, ptxas report)}; one nvcc a source, in parallel."""
+def build_all(sources, defines=None, label=None):
+    """{name: (.so path, ptxas report)}; one nvcc a source, in parallel,
+    with csrc/ on the include path (tile_common.cuh) and ``defines[name]``
+    (extra flags, e.g. -DNAME=VALUE) where given; ``label`` names the
+    kernels in the report (see ptxas_report)."""
     from torch.utils.cpp_extension import CUDA_HOME
 
     from gsplat_tpu_torch.raster import cuda_ext
@@ -53,7 +59,7 @@ def build_all(sources):
         so = os.path.join(WORK, f"lib{name}.so")
         cmd = [os.path.join(CUDA_HOME, "bin", "nvcc"), *cuda_ext.CUDA_FLAGS,
                "-std=c++17", "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v",
-               "-o", so, path]
+               "-I", CSRC, *(defines or {}).get(name, ()), "-o", so, path]
         procs[name] = (so, subprocess.Popen(cmd, stdout=subprocess.PIPE,
                                             stderr=subprocess.STDOUT,
                                             text=True))
@@ -62,19 +68,26 @@ def build_all(sources):
         text, _ = proc.communicate(timeout=600)
         if proc.returncode:
             raise RuntimeError(f"nvcc {name}: {text[-3000:]}")
-        built[name] = (so, ptxas_report(text))
+        built[name] = (so, ptxas_report(text, label or blend_label))
     return built
 
 
-def ptxas_report(text):
-    """{forward|backward: {registers, spill_stores, spill_loads,
-    smem_bytes}} from nvcc's -Xptxas=-v output."""
+def blend_label(entry):
+    """forward / backward for the blend kernels' entry functions."""
+    return "forward" if "forward" in entry else "backward"
+
+
+def ptxas_report(text, label):
+    """{label(kernel): {registers, spill_stores, spill_loads, smem_bytes}}
+    from nvcc's -Xptxas=-v output; kernels whose label is None are left
+    out."""
     out, kernel = {}, None
     for line in text.splitlines():
         m = re.search(r"Compiling entry function '(\w+)'", line)
         if m:
-            kernel = "forward" if "forward" in m.group(1) else "backward"
-            out[kernel] = {}
+            kernel = label(m.group(1))
+            if kernel:
+                out[kernel] = {}
         elif kernel:
             m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill "
                           r"loads", line)

@@ -210,6 +210,303 @@ def test_render_forward_plain_matches_loop():
                                atol=1e-5)
 
 
+def bf16(x):
+    """float32 values rounded to bf16 and decoded (what the render's
+    feature stream holds)."""
+    return torch.from_numpy(np.asarray(x, np.float32)).to(
+        torch.bfloat16).float().numpy()
+
+
+def stream_meta(tiles):
+    """chunk_meta for chunks of the given tile ids (ascending)."""
+    tl = np.array(tiles, np.int32)
+    first = np.r_[1, tl[1:] != tl[:-1]].astype(np.int32)
+    last = np.r_[tl[1:] != tl[:-1], 1].astype(np.int32)
+    return (tl << 2) | (first << 1) | last
+
+
+def render_stop_case(seed=0, half=False, chunk=128, tile_x=128, tile_y=32):
+    """One tile of four chunks: the first two hold dense opaque splats over
+    the whole tile (the tile-wide stop fires after the second) or, with
+    ``half``, smaller ones over its top rows (rows 0-7 end below 1e-4, the
+    lower half does not, so the tile walks all four chunks and the
+    saturated pixels keep compositing); the last two hold small splats
+    anywhere. A trailing sentinel chunk."""
+    rng = np.random.default_rng(seed)
+    tiles = [0, 0, 0, 0, 1]
+    feat = np.zeros((9, len(tiles) * chunk), np.float32)
+    for ci in range(4):
+        s = slice(ci * chunk, (ci + 1) * chunk)
+        if ci < 2:
+            lo, hi = (0.03, 0.06) if half else (0.005, 0.02)
+            feat[0, s] = rng.uniform(-4, tile_x + 4, chunk)
+            feat[1, s] = rng.uniform(-2, 3 * tile_y / 8 if half
+                                     else tile_y + 2, chunk)
+            feat[2, s] = feat[4, s] = rng.uniform(lo, hi, chunk)
+            feat[5, s] = rng.uniform(0.95, 1.0, chunk)
+        else:
+            feat[0, s] = rng.uniform(0, tile_x, chunk)
+            feat[1, s] = rng.uniform(0, tile_y, chunk)
+            feat[2, s] = feat[4, s] = rng.uniform(0.1, 0.5, chunk)
+            feat[3, s] = rng.uniform(-0.05, 0.05, chunk)
+            feat[5, s] = rng.uniform(0.2, 1.0, chunk)
+        feat[6:9, s] = rng.uniform(0, 1, (3, chunk))
+    return bf16(feat), stream_meta(tiles), dict(
+        num_tiles=1, n_pix=tile_x * tile_y, tile_x=tile_x, tile_y=tile_y,
+        grid_x=1, chunk=chunk)
+
+
+def render_graze_case(seed=0, tile_x=128, tile_y=32, chunk=128):
+    """One tile of bf16 slots whose alpha = 1/255 contour (exact, from the
+    bf16-decoded values) reaches within 1e-6-1e-3 px of a column on a
+    multiple of 8 or a row on a multiple of 4 (the edges of the kernels'
+    8 x 4 sub-blocks), from either side; axis-aligned and rotated conics,
+    means on integer pixels or anywhere; the last 8 slots are padding.
+    Found by a seeded search over 2^20 random slots. Returns the case and
+    the slots' distances to their edge."""
+    rng = np.random.default_rng(seed)
+    n = 1 << 20
+    s1, s2 = 10 ** rng.uniform(-0.3, 1.0, (2, n))
+    th = np.where(rng.uniform(size=n) < 0.5, 0.0, rng.uniform(0, np.pi, n))
+    cs, sn = np.cos(th), np.sin(th)
+    sxx = cs * cs * s1 * s1 + sn * sn * s2 * s2
+    syy = sn * sn * s1 * s1 + cs * cs * s2 * s2
+    sxy = cs * sn * (s1 * s1 - s2 * s2)
+    det = sxx * syy - sxy * sxy
+    a, b, c = (bf16(v).astype(np.float64)
+               for v in (syy / det, -sxy / det, sxx / det))
+    opa = bf16(rng.uniform(0.02, 1.0, n)).astype(np.float64)
+    on_pix = rng.uniform(size=n) < 0.5
+    x = np.where(on_pix, rng.integers(4, tile_x - 4, n),
+                 bf16(rng.uniform(4, tile_x - 4, n))).astype(np.float64)
+    y = np.where(on_pix, rng.integers(2, tile_y - 2, n),
+                 bf16(rng.uniform(2, tile_y - 2, n))).astype(np.float64)
+    r2 = 2 * np.log(255 * opa)
+    dt = a * c - b * b
+    hx, hy = np.sqrt(r2 * c / dt), np.sqrt(r2 * a / dt)
+    # contour extremes against sub-block edges: the first column (row) of
+    # the next sub-block, or the last of the previous one
+    ends = ((x + hx, 8), (x - hx + 1, 8), (y + hy, 4), (y - hy + 1, 4))
+    dist = np.min([np.abs(e - np.round(e / m) * m) for e, m in ends],
+                  axis=0)
+    # up to a third of the slots from each decade of distance
+    per = (chunk - 8) // 3
+    pick = np.concatenate([np.flatnonzero((dist >= lo) & (dist < 10 * lo))
+                           [:per] for lo in (1e-6, 1e-5, 1e-4)])
+    pick = np.concatenate([pick, np.flatnonzero(
+        (dist >= 1e-5) & (dist <= 1e-3) & ~np.isin(np.arange(n), pick))
+        [:chunk - 8 - pick.shape[0]]])
+    feat = np.zeros((9, 2 * chunk), np.float32)
+    k = pick.shape[0]
+    for row, v in enumerate((x, y, a, b, c, opa)):
+        feat[row, :k] = v[pick]
+    feat[6:9, :k] = bf16(rng.uniform(0, 1, (3, k)))
+    meta = stream_meta([0, 1])
+    return feat, meta, dict(num_tiles=1, n_pix=tile_x * tile_y,
+                            tile_x=tile_x, tile_y=tile_y, grid_x=1,
+                            chunk=chunk), dist[pick]
+
+
+def render_empty_case(chunk=32, tile_x=16, tile_y=16):
+    """Six tiles and no chunk but two sentinels: every tile is
+    background."""
+    return (np.zeros((9, 2 * chunk), np.float32), stream_meta([6, 6]),
+            dict(num_tiles=6, n_pix=tile_x * tile_y, tile_x=tile_x,
+                 tile_y=tile_y, grid_x=3, chunk=chunk))
+
+
+# (chunk, tile_x, tile_y) of render_case's six tiles, or a case function
+RENDER_CASES = {"128x32-c128": (128, 128, 32), "128x32-c256": (256, 128, 32),
+                "16x16-c16": (16, 16, 16), "ragged-24x10-c32": (32, 24, 10),
+                "thin-256x4-c128": (128, 256, 4),
+                "stop-128x32-c128": lambda: render_stop_case(),
+                "halfstop-128x32-c128": lambda: render_stop_case(half=True),
+                "empty-16x16-c32": render_empty_case,
+                "graze-128x32-c128": lambda: render_graze_case()[:3]}
+
+
+def render_stream(case, seed=0):
+    """(feat bf16-decoded float32, chunk_meta, kwargs) of a render case."""
+    spec = RENDER_CASES[case]
+    if callable(spec):
+        return spec()
+    chunk, tile_x, tile_y = spec
+    return render_case(seed, chunk=chunk, tile_x=tile_x, tile_y=tile_y)
+
+
+def plain_power(a, b, c, dx, dy):
+    """The plain render's quadratic form (tile_kernel.render_forward_plain):
+    -0.5 (a dx dx + c dy dy) - b dx dy, each operation rounded."""
+    return -0.5 * (a * dx * dx + c * dy * dy) - b * dx * dy
+
+
+def staged_power(a, b, c, dx, dy):
+    """tile_common.cuh::power_of on the staged record: (ha dx dx + hc dy dy)
+    - b dx dy with ha = -a/2, hc = -c/2."""
+    ha, hc = -0.5 * a, -0.5 * c
+    return (ha * dx * dx + hc * dy * dy) - b * dx * dy
+
+
+def passing_mask(xl, yl, a, b, c, opa, xs, ys):
+    """float32 pixels (xs, ys broadcast against the slot values) whose
+    alpha passes 1/255 in the plain render's operation order."""
+    dx, dy = xs - xl, ys - yl
+    power = plain_power(a, b, c, dx, dy)
+    alpha = torch.clamp(opa * torch.exp(power), max=ttile.ALPHA_MAX)
+    return (power <= 0) & (alpha >= ttile.ALPHA_MIN)
+
+
+def sub_block_cull(feat, kw):
+    """For each slot of a one-tile stream and each 8 x 4 sub-block of the
+    tile: (kept by the cull box, holds a pixel that passes 1/255), as
+    [slots, sub-blocks] bool tensors, all from the bf16-decoded values."""
+    f = torch.from_numpy(feat)
+    tx, ty = kw["tile_x"], kw["tile_y"]
+    sx, sy = ttile.BLEND_SUB_BLOCK
+    col = lambda t: t[:, None]  # noqa: E731
+    xl, yl, a, b, c, opa = (col(f[i]) for i in range(6))
+    hx, hy = ttile.blend_cull_extent(a, b, c, opa)
+    pix = torch.arange(tx * ty)
+    xs, ys = (pix % tx).float()[None], (pix // tx).float()[None]
+    passing = passing_mask(xl, yl, a, b, c, opa, xs, ys)   # [K, n_pix]
+    nbx, nby = -(-tx // sx), -(-ty // sy)
+    sub = (pix // tx // sy) * nbx + (pix % tx) // sx
+    holds = torch.zeros(f.shape[1], nbx * nby, dtype=torch.int32)
+    holds = holds.scatter_reduce(1, sub.expand(f.shape[1], -1),
+                                 passing.int(), "amax") > 0
+    bx = torch.arange(nbx * nby)
+    x0, y0 = ((bx % nbx) * sx).float(), ((bx // nbx) * sy).float()
+    x1 = torch.clamp(x0 + sx, max=tx) - 1
+    y1 = torch.clamp(y0 + sy, max=ty) - 1
+    kept = ttile.blend_cull_meets(xl, yl, hx, hy, x0[None], x1[None],
+                                  y0[None], y1[None])
+    return kept, holds
+
+
+@given(log_s=st.tuples(st.floats(-0.6, 2.5), st.floats(-0.6, 2.5)),
+       theta=st.floats(0.0, np.pi), opa=st.floats(1e-4, 1.0),
+       tile=st.tuples(st.integers(0, 14), st.integers(0, 33)),
+       mean=st.tuples(st.floats(-40, 168), st.floats(-40, 72)),
+       near=st.booleans(), shift=st.tuples(st.integers(-1, 1),
+                                           st.integers(-1, 1)),
+       sub=st.tuples(st.integers(0, 15), st.integers(0, 7)))
+@settings(max_examples=200, deadline=None)
+def test_render_cull_never_drops_a_passing_pixel_bf16(log_s, theta, opa,
+                                                      tile, mean, near,
+                                                      shift, sub):
+    """The render's cull rule on bf16-decoded features: no (8 x 4
+    sub-block, slot) pair it drops holds a pixel of a 128 x 32 tile whose
+    float32 alpha, in the plain render's operation order, passes 1/255.
+    The mean is a bf16 global coordinate made tile-local as the kernel
+    does; the sub-block straddles the box's edge or lies anywhere."""
+    s1, s2 = 10.0 ** log_s[0], 10.0 ** log_s[1]
+    rot = np.array([[np.cos(theta), -np.sin(theta)],
+                    [np.sin(theta), np.cos(theta)]])
+    a, b, _, c = bf16(np.linalg.inv(rot @ np.diag([s1 * s1, s2 * s2])
+                                    @ rot.T).ravel())
+    opa = bf16(opa)
+    ox, oy = np.float32(tile[0] * 128), np.float32(tile[1] * 32)
+    x, y = bf16([ox + mean[0], oy + mean[1]])
+    xl, yl = f32(x) - f32(ox), f32(y) - f32(oy)
+    hx, hy = cull_extent(a, b, c, opa)
+    sx, sy = ttile.BLEND_SUB_BLOCK
+    if near and np.isfinite(float(hx)) and hx > 0:
+        x0 = (int(np.floor(float(xl + hx))) // sx + shift[0]) * sx
+        y0 = (int(np.floor(float(yl))) // sy + shift[1]) * sy
+    else:
+        x0, y0 = sub[0] * sx, sub[1] * sy
+    if not (0 <= x0 < 128 and 0 <= y0 < 32):
+        return
+    x1, y1 = x0 + sx - 1, y0 + sy - 1
+    if not block_meets(xl, yl, hx, hy, x0, x1, y0, y1):
+        xs, ys = np.meshgrid(np.arange(x0, x1 + 1, dtype=np.float32),
+                             np.arange(y0, y1 + 1, dtype=np.float32))
+        assert not bool(passing_mask(xl, yl, f32(a), f32(b), f32(c),
+                                     f32(opa), torch.from_numpy(xs),
+                                     torch.from_numpy(ys)).any())
+
+
+def test_render_cull_keeps_grazing_bf16_slots():
+    """Slots whose contour ends 1e-6-1e-3 px from a sub-block edge: the
+    box never drops a (sub-block, slot) pair that holds a passing pixel,
+    and the case does graze (distances down to 1e-5 px; pixels whose
+    alpha is within 1% of 1/255 pass)."""
+    feat, _, kw, dist = render_graze_case()
+    assert dist.shape[0] == kw["chunk"] - 8
+    assert dist.min() < 1e-5 and 1e-4 < dist.max() <= 1e-3
+    kept, holds = sub_block_cull(feat, kw)
+    assert not bool((holds & ~kept).any())
+    assert int(holds.sum()) > 0 and bool((~kept).any())
+    f = torch.from_numpy(feat)
+    pix = torch.arange(kw["n_pix"])
+    xs = (pix % kw["tile_x"]).float()[None]
+    ys = (pix // kw["tile_x"]).float()[None]
+    power = plain_power(*(f[i][:, None] for i in (2, 3, 4)),
+                        xs - f[0][:, None], ys - f[1][:, None])
+    alpha = f[5][:, None] * torch.exp(power)
+    assert int(((alpha >= ttile.ALPHA_MIN)
+                & (alpha < 1.01 * ttile.ALPHA_MIN)).sum()) > 0
+
+
+def test_render_staged_power_matches_plain_form_bitwise():
+    """The kernels' staged quadratic form (-1/2 folded into a and c) gives
+    the plain render's power bit for bit on bf16-decoded conics and
+    tile-local offsets (zero offsets included)."""
+    rng = np.random.default_rng(3)
+    n = 1 << 18
+    a, c = (torch.from_numpy(bf16(10 ** rng.uniform(-4, 0.6, n)))
+            for _ in range(2))
+    b = torch.from_numpy(bf16(rng.uniform(-0.99, 0.99, n)
+                              * np.sqrt((a * c).numpy())))
+    ox = (rng.integers(0, 15, n) * 128).astype(np.float32)
+    oy = (rng.integers(0, 34, n) * 32).astype(np.float32)
+    xl = torch.from_numpy(bf16(ox + rng.uniform(-30, 158, n)) - ox)
+    yl = torch.from_numpy(bf16(oy + rng.uniform(-30, 62, n)) - oy)
+    px = torch.from_numpy(rng.integers(0, 128, n)).float()
+    py = torch.from_numpy(rng.integers(0, 32, n)).float()
+    px[: n // 8] = torch.round(xl[: n // 8]).clamp(0, 127)   # dx = 0 often
+    dx, dy = px - xl, py - yl
+    want = plain_power(a, b, c, dx, dy)
+    got = staged_power(a, b, c, dx, dy)
+    assert bool((dx == 0).any())
+    assert torch.equal(got.view(torch.int32), want.view(torch.int32))
+
+
+def test_render_passing_pairs_match_loop():
+    """The plain render's stats: the visited chunks and the (pixel, slot)
+    pairs of those chunks that pass 1/255, against a numpy loop."""
+    feat, meta, kw = render_case()
+    tx, n_pix, chunk = kw["tile_x"], kw["n_pix"], kw["chunk"]
+    px = (np.arange(n_pix) % tx).astype(np.float32)
+    py = (np.arange(n_pix) // tx).astype(np.float32)
+    want_pass, want_visited = 0, []
+    for t in range(kw["num_tiles"]):
+        ox, oy = (t % kw["grid_x"]) * tx, (t // kw["grid_x"]) * kw["tile_y"]
+        T = np.ones(n_pix, np.float32)
+        for ci in [ci for ci in range(len(meta)) if meta[ci] >> 2 == t]:
+            want_visited.append(ci)
+            for g in range(ci * chunk, (ci + 1) * chunk):
+                x, y, a, b, cc, opa = feat[:6, g]
+                dx = px - np.float32(x - np.float32(ox))
+                dy = py - np.float32(y - np.float32(oy))
+                power = (np.float32(-0.5) * (a * dx * dx + cc * dy * dy)
+                         - b * dx * dy)
+                alpha = np.minimum(np.float32(ttile.ALPHA_MAX),
+                                   opa * exp32(power))
+                ok = (power <= 0) & (alpha >= np.float32(ttile.ALPHA_MIN))
+                want_pass += int(ok.sum())
+                T = T * (1 - np.where(ok, alpha, 0)).astype(np.float32)
+            if T.max() <= ttile.T_EPS:
+                break
+    stats = {}
+    ttile.render_plain_with_visits(
+        torch.from_numpy(feat).to(torch.bfloat16), torch.from_numpy(meta),
+        torch.tensor(BG), **kw, stats=stats)
+    assert sorted(int(i) for v in stats["visited"] for i in v) == sorted(
+        want_visited)
+    assert stats["passing"] == want_pass > 0
+
+
 def graze_case(seed=0, tile_x=32, tile_y=16, chunk=128):
     """One tile of splats whose alpha = 1/255 contours end within
     +-1e-3 px of a pixel column or row on a multiple of 8 columns or 4
@@ -545,6 +842,8 @@ def test_extension_sources_and_flags():
     for name in cuda_ext.SOURCES:
         text = (cuda_ext.CSRC / name).read_text()
         assert ("torch/extension.h" in text) == (name == "binding.cpp"), name
+    headers = list(cuda_ext.CSRC.glob("*.cuh"))
+    assert headers and not any("torch/" in h.read_text() for h in headers)
     assert "-gencode=arch=compute_90a,code=sm_90a" in cuda_ext.CUDA_FLAGS
     cu = sorted(p.name for p in cuda_ext.CSRC.glob("*.cu"))
     assert cu == sorted(s for s in cuda_ext.SOURCES if s.endswith(".cu"))
@@ -552,18 +851,78 @@ def test_extension_sources_and_flags():
 
 # ---------------------------------------------------------------- GPU ----
 
+def expand_kind_case(kind, k, seed=0):
+    """expand_case, or: all-zero marks ("zeros"), a single mark at slot
+    K - 1 ("last"), marks on ~10% of the slots ("dense")."""
+    if kind == "sparse":
+        return expand_case(k, seed)
+    marks = np.zeros(k, np.int32)
+    if kind == "last":
+        marks[k - 1] = 12345
+    elif kind == "dense":
+        rng = np.random.default_rng(seed)
+        pos = np.flatnonzero(rng.uniform(size=k) < 0.1)
+        marks[pos] = rng.integers(1, 1 << 30, pos.shape[0])
+    base_in = np.where(marks != 0, np.arange(k, dtype=np.int32), 0)
+    return marks, base_in.astype(np.int32)
+
+
+# (kind, K): around the 4096-slot tile edges, several windows of look-back
+# (more than 32 tiles), and the serving frame's K = 8M
+EXPAND_CASES = [("sparse", k) for k in (700, 4095, 4096, 4097, 8191, 8192,
+                                        3 * 4096 + 511, 1 << 20)] + [
+    ("zeros", 5 * 4096), ("last", 40 * 4096 + 3), ("last", 1),
+    ("dense", 200 * 4096 + 17), ("dense", 8_000_000)]
+
+
 @pytest.mark.gpu
-@pytest.mark.parametrize("k", [700, 3 * 4096 + 511, 1 << 20])
-def test_expand_scan_cuda_matches_plain(cuda, k):
-    marks, base_in = expand_case(k, seed=k)
+@pytest.mark.parametrize("kind,k", EXPAND_CASES)
+def test_expand_scan_cuda_matches_plain(cuda, kind, k):
+    """The single-pass kernel bit-equal to the plain scans; a second and a
+    third launch (the look-back state reused under new epochs, once on
+    inputs that are not 16-byte aligned) give the same outputs."""
+    marks, base_in = expand_kind_case(kind, k, seed=k)
     m, b = torch.from_numpy(marks), torch.from_numpy(base_in)
     want = tscan.expand_scan_plain(m, b)
     before = tscan.expand_scan.launches
-    got = tscan.expand_scan(m.to(cuda), b.to(cuda))
+    mc, bc = m.to(cuda), b.to(cuda)
+    got = tscan.expand_scan(mc, bc)
+    again = tscan.expand_scan(mc, bc)
+    # one int32 in: every buffer 4 bytes past a 16-byte boundary
+    mo = torch.zeros(k + 1, dtype=torch.int32, device=cuda)[1:]
+    bo = torch.zeros(k + 1, dtype=torch.int32, device=cuda)[1:]
+    mo.copy_(mc)
+    bo.copy_(bc)
+    shifted = tscan.expand_scan(mo, bo)
     torch.cuda.synchronize()
-    assert tscan.expand_scan.launches == before + 1
-    for g, w in zip(got, want):
+    assert tscan.expand_scan.launches == before + 3
+    for g, a, h, w in zip(got, again, shifted, want):
         assert torch.equal(g.cpu(), w)
+        assert torch.equal(g, a)
+        assert torch.equal(h.cpu(), w)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("k", [4096, 41 * 4096 + 5, 8_000_000])
+def test_expand_scan_cuda_stays_in_its_state_buffer(cuda, k):
+    """The kernel writes no further than expand_scan_state_words(k) words
+    of the look-back state (sentinel words after them stay), leaves its
+    ticket counter at 0 for the next call, and gives the plain outputs."""
+    ext = cuda_ext.load()
+    marks, base_in = expand_kind_case("dense", k, seed=1)
+    m, b = torch.from_numpy(marks), torch.from_numpy(base_in)
+    want = tscan.expand_scan_plain(m, b)
+    words = ext.expand_scan_state_words(k)
+    state = torch.full((words + 256,), -7, dtype=torch.int64, device=cuda)
+    state[:words] = 0
+    outs = [torch.empty(k, dtype=torch.int32, device=cuda) for _ in range(3)]
+    for epoch in (1, 2):
+        ext.expand_scan(m.to(cuda), b.to(cuda), state, epoch, *outs)
+        torch.cuda.synchronize()
+        assert bool((state[words:] == -7).all())
+        assert int(state[0]) == 0
+        for g, w in zip(outs, want):
+            assert torch.equal(g.cpu(), w)
 
 
 @pytest.mark.gpu
@@ -586,15 +945,27 @@ def within_bf16_ulps(got, want, ulps=2):
 
 
 @pytest.mark.gpu
-def test_render_forward_cuda_matches_plain(cuda):
-    feat, meta, kw = render_case()
-    feat_t = torch.from_numpy(feat).to(torch.bfloat16)
-    want = ttile.render_forward(feat_t, torch.from_numpy(meta),
-                                torch.tensor(BG), **kw).float()
-    got = ttile.render_forward(feat_t.to(cuda), torch.from_numpy(meta).to(
-        cuda), torch.tensor(BG, device=cuda), **kw)
+@pytest.mark.parametrize("case", list(RENDER_CASES))
+def test_render_forward_cuda_matches_plain(cuda, case):
+    """The render kernel (exact culling, tiles over 8 warps split over a
+    cluster with a shared tile-wide stop) within two bf16 ULPs of its
+    plain version on the card, and two launches bit-equal."""
+    feat, meta, kw = render_stream(case)
+    f = torch.from_numpy(feat).to(torch.bfloat16).to(cuda)
+    m = torch.from_numpy(meta).to(cuda)
+    bgc = torch.tensor(BG, device=cuda)
+    want, visits = ttile.render_plain_with_visits(f, m, bgc, **kw)
+    before = ttile.render_forward.launches
+    got = ttile.render_forward(f, m, bgc, **kw)
+    again = ttile.render_forward(f, m, bgc, **kw)
     torch.cuda.synchronize()
-    assert within_bf16_ulps(got.float().cpu(), want)
+    assert ttile.render_forward.launches == before + 2
+    assert within_bf16_ulps(got.float(), want.float())
+    assert torch.equal(got, again)
+    if case.startswith("stop"):
+        assert int(visits[0]) == 2     # the tile stopped mid-way
+    if case.startswith("halfstop"):
+        assert int(visits[0]) == 4
 
 
 @pytest.mark.gpu
