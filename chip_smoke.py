@@ -59,10 +59,14 @@ the result line is printed:
                colour and T within 1e-5, used > 0 per slot identical;
                backward: each dfeat row within 1e-4 of its max,
                two launches bit-equal; multi_cumsum: 2e-3 + 1e-5 |x| of a
-               float64 cumsum); times; for the blends also the pairs that
+               float64 cumsum, two launches bit-equal); times; for the
+               blends also the pairs that
                pass 1/255 (bound_ms counts those alone; bound_all_pairs_ms
                every pair whose pixel is not done) and the
                share of (warp, slot) pairs the kernels' cull keeps
+  large_tile   one step of the 100k setting at 128x32 tiles and 256-slot
+               chunks (the blends in pixel groups and chunk pieces): both
+               blends against plain with the kernel phase's gates
   kernel_yardstick  merge_expand beside its bound and torch.searchsorted
                per setting (owners only: a partial yardstick, not the same
                function)
@@ -89,7 +93,8 @@ the result line is printed:
                render_stream.main: one render and one owner expansion a
                view
   profile      device time by kernel, serving, after every unprofiled
-               timing; the idle share against the unprofiled frame time
+               timing (the port's kernels each by name: their own device
+               time); the idle share against the unprofiled frame time
   train_profile  the same for 3 training steps per setting
   swin_profile   the same for 3 swin steps
 
@@ -505,11 +510,10 @@ def render_bounds(feat, meta, rkw, visits, stats):
 
 
 def merge_bound(p, k):
-    """merge_expand's bound at P starts and K slots: starts and pack read
-    once, three int32 written a slot; one binary-search step an operation."""
-    nbytes = 8 * p + 12 * k
-    ops = k * max(1, math.ceil(math.log2(p + 1)))
-    return dict(zip(("bound_ms", "bound_by"), bound(nbytes, ops)))
+    """merge_expand's bound at P starts and K slots: the function's bytes,
+    starts and pack read once and three int32 written a slot (whatever
+    algorithm computes it)."""
+    return dict(zip(("bound_ms", "bound_by"), bound(8 * p + 12 * k, 0)))
 
 
 def check_merge_expand(starts, pack, kk, card_name, **extra):
@@ -520,11 +524,14 @@ def check_merge_expand(starts, pack, kk, card_name, **extra):
     from gsplat_tpu_torch.raster import scan_kernel
 
     got = scan_kernel.merge_expand(starts, pack, kk)
+    again = scan_kernel.merge_expand(starts, pack, kk)
     want = scan_kernel.merge_expand_plain(starts, pack, kk)
     torch.cuda.synchronize()
     err = max(int((g - w).abs().max()) for g, w in zip(got, want))
     if not all(torch.equal(g, w) for g, w in zip(got, want)):
         raise AssertionError(f"merge_expand differs from plain: {err}")
+    if not all(torch.equal(g, a) for g, a in zip(got, again)):
+        raise AssertionError("two merge_expand launches differ")
     p = starts.shape[0]
     entry = dict(
         name="merge_expand", route="cuda",
@@ -691,6 +698,25 @@ def pass_ms(fn, cams) -> float:
     return (time.perf_counter() - t0) * 1e3 / len(cams)
 
 
+# the port's kernel entry functions as the profiler names them
+PORT_KERNELS = ("expand_scan_kernel", "merge_expand_kernel", "render_kernel",
+                "blend_forward_kernel", "blend_backward_kernel",
+                "multi_cumsum_kernel")
+
+
+def port_kernel_ms(rows):
+    """{kernel: device ms} of the port's kernels among a profile's rows
+    ((ms, calls, full kernel name)): each kernel's own time on the card,
+    which a CUDA-event time of a call of a few microseconds cannot give
+    (the host's time of the call bounds it)."""
+    out = {}
+    for ms, _, key in rows:
+        for name in PORT_KERNELS:
+            if name in key:
+                out[name] = out.get(name, 0.0) + ms
+    return out
+
+
 def profile_frames(fn, cams, setting, frame_ms, plain_pass_ms, card_name):
     """Device time by kernel over one pass of the cameras (torch.profiler).
     The profiler slows the host, so the idle share sets the device busy
@@ -707,7 +733,7 @@ def profile_frames(fn, cams, setting, frame_ms, plain_pass_ms, card_name):
         dev_us = getattr(e, "self_device_time_total", 0) or 0
         if str(getattr(e, "device_type", "")).endswith("CUDA") and dev_us:
             rows.append((dev_us / 1e3 / len(cams), e.count // len(cams),
-                         e.key[:70]))
+                         e.key))
     rows.sort(reverse=True)
     busy = sum(r[0] for r in rows)
     log("profile", card=card_name, setting=setting, frame_ms=frame_ms,
@@ -716,7 +742,8 @@ def profile_frames(fn, cams, setting, frame_ms, plain_pass_ms, card_name):
         device_busy_ms_per_frame=busy if rows else "not measured",
         idle_share=(1 - busy / frame_ms) if rows else "not measured",
         kernels_per_frame=sum(r[1] for r in rows),
-        top=[{"kernel": k, "ms_per_frame": round(ms, 4), "calls": c}
+        port_kernels_ms_per_frame=port_kernel_ms(rows),
+        top=[{"kernel": k[:70], "ms_per_frame": round(ms, 4), "calls": c}
              for ms, c, k in rows[:14]])
 
 
@@ -1113,12 +1140,16 @@ def _check_training_kernels(caps, card_name):
         if "multi_cumsum" in cap:
             x = cap["multi_cumsum"][0].detach()
             got = scan_kernel.multi_cumsum(x)
+            again = scan_kernel.multi_cumsum(x)
             ref = torch.cumsum(x.double(), dim=1)
             torch.cuda.synchronize()
             err = (got.double() - ref).abs()
             if bool((err > 2e-3 + 1e-5 * ref.abs()).any()):
                 raise AssertionError(f"{name}: multi_cumsum vs float64, max "
                                      f"abs {float(err.max())}")
+            if not torch.equal(got, again):
+                raise AssertionError(f"{name}: two multi_cumsum launches "
+                                     f"differ")
             plain = scan_kernel.multi_cumsum_plain(x)
             n, kk = x.shape
             b_ms, b_by = bound(8 * n * kk, n * kk)
@@ -1133,10 +1164,47 @@ def _check_training_kernels(caps, card_name):
                                  5),
                 bound_ms=b_ms, bound_by=b_by,
                 library_ms=cuda_ms(lambda: torch.cumsum(x, dim=1), 20),
-                shape=f"n={n} K={kk}")
+                repeat_bit_equal=True, shape=f"n={n} K={kk}")
             log("kernel", card=card_name, **entry)
             out.setdefault("multi_cumsum", {})[name] = entry
     return out
+
+
+# the serving tile and a 256-slot chunk: the blend kernels walk such a tile
+# in four groups of 1,024 pixels and each chunk in two 128-slot pieces
+LARGE_TILE = dict(tile_x=128, tile_y=32, chunk=256)
+
+
+def check_large_tiles(st, card_name):
+    """One step of the 100k training setting at LARGE_TILE, its blend
+    inputs recorded, and both blends held against their plain versions
+    with check_blend's gates; times beside them."""
+    import dataclasses as dc
+
+    import torch
+
+    from gsplat_tpu_torch.raster import tile_kernel
+
+    name = "100k-800x800-128x32-c256"
+    settings = dc.replace(st["settings"], **LARGE_TILE)
+    cap = capture_training({name: dict(st, settings=settings)},
+                           card_name)[name]
+    with torch.no_grad():
+        feat, meta, kw = blend_kwargs(cap["blend_forward"])
+        dpack = cap["blend_backward"][2].detach()
+        want = (*tile_kernel.tile_blend_forward_plain(feat, meta, **kw),
+                tile_kernel.tile_blend_backward_plain(feat, meta, dpack,
+                                                      **kw))
+        errs = check_blend(name, tile_kernel.tile_blend_forward,
+                           tile_kernel.tile_blend_backward, feat, meta,
+                           dpack, kw, want)
+        log("large_tile", card=card_name, setting=name, **errs,
+            forward_ms=cuda_ms(lambda: tile_kernel.tile_blend_forward(
+                feat, meta, **kw), 10),
+            backward_ms=cuda_ms(lambda: tile_kernel.tile_blend_backward(
+                feat, meta, dpack, **kw), 10),
+            shape=f"tiles={kw['num_tiles']} slots={feat.shape[1]} "
+                  f"n_pix={kw['n_pix']} chunk={kw['chunk']}")
 
 
 # The golden's inference image carries the JAX kernel's bf16 log-scan of
@@ -1351,14 +1419,15 @@ def profile_steps(phase, setting, run, step_ms, card_name, n=3):
     for e in prof.key_averages():
         dev_us = getattr(e, "self_device_time_total", 0) or 0
         if str(getattr(e, "device_type", "")).endswith("CUDA") and dev_us:
-            rows.append((dev_us / 1e3 / n, e.count // n, e.key[:70]))
+            rows.append((dev_us / 1e3 / n, e.count // n, e.key))
     rows.sort(reverse=True)
     busy = sum(r[0] for r in rows)
     log(phase, card=card_name, setting=setting, step_ms=step_ms,
         device_busy_ms_per_step=busy if rows else "not measured",
         idle_share=(1 - busy / step_ms) if rows else "not measured",
         kernels_per_step=sum(r[1] for r in rows),
-        top=[{"kernel": k, "ms_per_step": round(ms, 4), "calls": c}
+        port_kernels_ms_per_step=port_kernel_ms(rows),
+        top=[{"kernel": k[:70], "ms_per_step": round(ms, 4), "calls": c}
              for ms, c, k in rows[:16]])
 
 
@@ -1894,6 +1963,7 @@ def main() -> int:
     setups, rng = build_training(card_name)
     train_caps = capture_training(setups, card_name)
     train_kernels = check_training_kernels(train_caps, card_name)
+    check_large_tiles(setups["100k-800x800"], card_name)
     # the swin setting continues bench.py's draws
     swin_st = build_swin(rng, setups["100k-800x800"]["settings"].k_dup,
                          card_name)

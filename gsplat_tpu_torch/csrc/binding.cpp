@@ -18,11 +18,13 @@ int gsplat_expand_scan(const int* marks, const int* base_in, long long k,
 int gsplat_merge_expand(const int* starts, const int* pack, int p, int k,
                         int* pack_out, int* base_out, int* rank_out,
                         cudaStream_t stream);
+long long gsplat_render_scratch_floats(int num_tiles, int n_pix, int tile_x,
+                                       int tile_y);
 int gsplat_render_forward(const void* feat, long long k_slots,
                           const int* chunk_meta, int n_chunks,
-                          const float* bg, void* out, int num_tiles,
-                          int n_pix, int tile_x, int tile_y, int grid_x,
-                          int chunk, cudaStream_t stream);
+                          const float* bg, void* out, void* scratch,
+                          int num_tiles, int n_pix, int tile_x, int tile_y,
+                          int grid_x, int chunk, cudaStream_t stream);
 int gsplat_blend_forward(const float* feat, long long k_slots,
                          const int* chunk_meta, int n_chunks, float* ct,
                          int* used, int num_tiles, int n_pix, int tile_x,
@@ -33,9 +35,11 @@ int gsplat_blend_backward(const float* feat, long long k_slots,
                           const float* dpack, float* dfeat, int num_tiles,
                           int n_pix, int tile_x, int tile_y, int grid_x,
                           int chunk, cudaStream_t stream);
-int gsplat_cumsum_blocks(long long k);
-int gsplat_multi_cumsum(const float* x, int n, long long k, float* totals,
-                        float* out, cudaStream_t stream);
+int gsplat_cummax_blocks(long long k);
+long long gsplat_multi_cumsum_state_words(int n, long long k);
+int gsplat_multi_cumsum(const float* x, int n, long long k, void* state,
+                        unsigned long long epoch, float* out,
+                        cudaStream_t stream);
 int gsplat_multi_cummax(const int* x, int n, long long k, int* totals,
                         int* out, cudaStream_t stream);
 }
@@ -76,14 +80,24 @@ void merge_expand(torch::Tensor starts, torch::Tensor pack,
         "merge_expand");
 }
 
+int64_t render_scratch_floats(int64_t num_tiles, int64_t n_pix,
+                              int64_t tile_x, int64_t tile_y) {
+  return gsplat_render_scratch_floats(
+      static_cast<int>(num_tiles), static_cast<int>(n_pix),
+      static_cast<int>(tile_x), static_cast<int>(tile_y));
+}
+
+// scratch: render_scratch_floats(...) float32 (an empty tensor when 0)
 void render_forward(torch::Tensor feat, torch::Tensor chunk_meta,
-                    torch::Tensor bg, torch::Tensor out, int64_t n_pix,
-                    int64_t tile_x, int64_t tile_y, int64_t grid_x,
-                    int64_t chunk) {
+                    torch::Tensor bg, torch::Tensor out,
+                    torch::Tensor scratch, int64_t n_pix, int64_t tile_x,
+                    int64_t tile_y, int64_t grid_x, int64_t chunk) {
   check(gsplat_render_forward(
             feat.data_ptr(), feat.size(1), chunk_meta.data_ptr<int>(),
             static_cast<int>(chunk_meta.numel()), bg.data_ptr<float>(),
-            out.data_ptr(), static_cast<int>(out.size(0)),
+            out.data_ptr(),
+            scratch.numel() ? scratch.data_ptr<float>() : nullptr,
+            static_cast<int>(out.size(0)),
             static_cast<int>(n_pix), static_cast<int>(tile_x),
             static_cast<int>(tile_y), static_cast<int>(grid_x),
             static_cast<int>(chunk), stream()),
@@ -120,13 +134,19 @@ void blend_backward(torch::Tensor feat, torch::Tensor chunk_meta,
         "blend_backward");
 }
 
-int64_t cumsum_blocks(int64_t k) { return gsplat_cumsum_blocks(k); }
+int64_t cummax_blocks(int64_t k) { return gsplat_cummax_blocks(k); }
 
-void multi_cumsum(torch::Tensor x, torch::Tensor totals, torch::Tensor out) {
+int64_t multi_cumsum_state_words(int64_t n, int64_t k) {
+  return gsplat_multi_cumsum_state_words(static_cast<int>(n), k);
+}
+
+void multi_cumsum(torch::Tensor x, torch::Tensor state, int64_t epoch,
+                  torch::Tensor out) {
   check(gsplat_multi_cumsum(x.data_ptr<float>(),
                             static_cast<int>(x.size(0)), x.size(1),
-                            totals.data_ptr<float>(), out.data_ptr<float>(),
-                            stream()),
+                            state.data_ptr<int64_t>(),
+                            static_cast<unsigned long long>(epoch),
+                            out.data_ptr<float>(), stream()),
         "multi_cumsum");
 }
 
@@ -143,10 +163,12 @@ PYBIND11_MODULE(TORCH_EXTENSION_NAME, m) {
   m.def("expand_scan_state_words", &expand_scan_state_words);
   m.def("expand_scan", &expand_scan);
   m.def("merge_expand", &merge_expand);
+  m.def("render_scratch_floats", &render_scratch_floats);
   m.def("render_forward", &render_forward);
   m.def("blend_forward", &blend_forward);
   m.def("blend_backward", &blend_backward);
-  m.def("cumsum_blocks", &cumsum_blocks);
+  m.def("cummax_blocks", &cummax_blocks);
+  m.def("multi_cumsum_state_words", &multi_cumsum_state_words);
   m.def("multi_cumsum", &multi_cumsum);
   m.def("multi_cummax", &multi_cummax);
 }

@@ -177,20 +177,29 @@ __device__ __forceinline__ bool meets(const Slot& s, float4 box) {
            __fsub_rn(box.w, s.p.y) < -hy);
 }
 
-// Warp tiles of a tile: blocks of kBlockX x kBlockY pixels when at most
-// max_warps of them cover it (nbx > 0 block columns), else consecutive
-// pixels (nbx = 0).
+// Warp units of a tile: compact blocks of kBlockX x kBlockY pixels (nbx > 0
+// block columns) unless there are more of them than both max_warps and
+// the units of kPix * 32 consecutive pixels (thin tiles), which are then
+// taken instead (nbx = 0). A tile of more units than max_warps runs its
+// warps over ``groups`` groups of units in turn: warp w of group q holds
+// unit q * warps + w (units past the tile hold no pixel).
 struct Geometry {
   int nbx;
   int warps;
+  int groups;
 };
 
 inline Geometry tile_geometry(int n_pix, int tile_x, int tile_y,
                               int max_warps) {
   const int nbx = (tile_x + kBlockX - 1) / kBlockX;
   const int nby = (tile_y + kBlockY - 1) / kBlockY;
-  if (nbx * nby <= max_warps) return {nbx, nbx * nby};
-  return {0, (n_pix + 32 * kPix - 1) / (32 * kPix)};
+  const int linear = (n_pix + 32 * kPix - 1) / (32 * kPix);
+  const bool compact = (long long)nbx * nby <= (max_warps > linear
+                                                     ? max_warps
+                                                     : linear);
+  const int units = compact ? nbx * nby : linear;
+  const int warps = units < max_warps ? units : max_warps;
+  return {compact ? nbx : 0, warps, (units + warps - 1) / warps};
 }
 
 }  // namespace

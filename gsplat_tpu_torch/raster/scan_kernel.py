@@ -12,17 +12,22 @@ it. The source notes in the .cu file give each kernel's bound and design.
   the slots computing the latest nonzero mark, the running max of
   ``base_in`` (floored at 0, as the TPU carry starts at 0) and the 1-based
   running count of nonzero marks. The kernel is a single-pass chained
-  scan; its look-back state lives in a buffer kept per device and stream
-  (``_lookback_state``), zero-filled once and tagged with a new epoch on
-  every call, so a call launches the one kernel and nothing else.
+  scan; its look-back state lives in a buffer kept per kernel, device and
+  stream (``_lookback_state``), zero-filled once and tagged with a new
+  epoch on every call, so a call launches the one kernel and nothing
+  else.
 - ``merge_expand`` replaces ``scan_kernel._merge_kernel``: slot d's owner
   is the last g with ``starts[g] <= d`` (``starts`` ascending); returns
   ``pack[g]``, ``starts[g]`` and ``g + 1`` (all 0 where no start is <= d).
-  Slots at or past the duplicate count are dead: callers mask them.
+  Slots at or past the duplicate count are dead: callers mask them. The
+  kernel merges the starts with the slot indices (a merge-path search a
+  block), so runs of equal starts (empty ranges) cost no more than others.
 - ``multi_cumsum`` replaces ``scan_kernel._cumsum_kernel``: the inclusive
   float32 cumsum of each row of an [n, K] array, with a compensated carry
-  between 4096-element blocks so each element's error stays at
-  within-block scale.
+  between 16384-element blocks so each element's error stays at
+  within-block scale. The kernel is a single-pass chained scan like
+  ``expand_scan``'s, with a state buffer of its own; it folds the carry in
+  block order, so two launches on the same input give the same bits.
 - ``multi_cummax`` replaces ``scan_kernel._kernel``: the inclusive int32
   cummax of each row of an [n, K] array. No module calls it (the JAX
   package's neither); it is held on the card by itself.
@@ -60,16 +65,19 @@ def expand_scan_plain(marks: torch.Tensor, base_in: torch.Tensor):
     return pack, base, rank
 
 
-# (device index, stream id) -> [int64 state buffer, last epoch]
+# (kernel, device index, stream id) -> [int64 state buffer, last epoch]
 _LOOKBACK: dict = {}
 
 
-def _lookback_state(device: torch.device, words: int):
-    """The look-back state buffer of ``device``'s current stream, at least
-    ``words`` int64 long, and the epoch for the next call. A new or larger
-    buffer is zero-filled (its epochs start again at 1); calls on one
-    stream never overlap, so they can share it."""
-    key = (device.index, torch.cuda.current_stream(device).cuda_stream)
+def _lookback_state(kernel: str, device: torch.device, words: int):
+    """The look-back state buffer of ``kernel`` on ``device``'s current
+    stream, at least ``words`` int64 long, and the epoch for the next call.
+    A new or larger buffer is zero-filled (its epochs start again at 1);
+    calls of one kernel on one stream never overlap, so they can share it.
+    Each kernel has its own buffer: the two lay their tiles' states out
+    differently."""
+    key = (kernel, device.index,
+           torch.cuda.current_stream(device).cuda_stream)
     entry = _LOOKBACK.get(key)
     if entry is None or entry[0].numel() < words:
         entry = _LOOKBACK[key] = [torch.zeros(words, dtype=torch.int64,
@@ -89,7 +97,8 @@ def expand_scan(marks: torch.Tensor, base_in: torch.Tensor):
         return expand_scan_plain(marks, base_in)
     ext = cuda_ext.load()
     k = marks.shape[0]
-    state, epoch = _lookback_state(device, ext.expand_scan_state_words(k))
+    state, epoch = _lookback_state("expand_scan", device,
+                                   ext.expand_scan_state_words(k))
     outs = [torch.empty_like(marks) for _ in range(3)]
     ext.expand_scan(marks, base_in, state, epoch, *outs)
     expand_scan.launches += 1
@@ -134,7 +143,7 @@ def merge_expand(starts: torch.Tensor, pack: torch.Tensor, k: int):
 merge_expand.launches = 0
 
 
-CUMSUM_BLOCK = 4096  # elements per block of the compensated carry
+CUMSUM_BLOCK = 16384  # elements per tile of the kernel's compensated carry
 
 
 def multi_cumsum_plain(x: torch.Tensor) -> torch.Tensor:
@@ -159,13 +168,14 @@ def multi_cumsum(x: torch.Tensor) -> torch.Tensor:
                          f"got {x.dtype} {tuple(x.shape)}")
     if x.device.type == "cpu":
         return multi_cumsum_plain(x)
-    ext = cuda_ext.load()
-    n, k = x.shape
-    totals = torch.empty(n * ext.cumsum_blocks(k), dtype=torch.float32,
-                         device=x.device)
     out = torch.empty_like(x)
-    ext.multi_cumsum(x, totals, out)
-    multi_cumsum.launches += 1
+    if x.numel():
+        ext = cuda_ext.load()
+        n, k = x.shape
+        state, epoch = _lookback_state(
+            "multi_cumsum", x.device, ext.multi_cumsum_state_words(n, k))
+        ext.multi_cumsum(x, state, epoch, out)
+        multi_cumsum.launches += 1
     return out
 
 
@@ -188,8 +198,7 @@ def multi_cummax(x: torch.Tensor) -> torch.Tensor:
     if x.numel():
         ext = cuda_ext.load()
         n, k = x.shape
-        # the same 4096-element blocks as multi_cumsum
-        totals = torch.empty(n * ext.cumsum_blocks(k), dtype=torch.int32,
+        totals = torch.empty(n * ext.cummax_blocks(k), dtype=torch.int32,
                              device=x.device)
         ext.multi_cummax(x, totals, out)
         multi_cummax.launches += 1

@@ -6,7 +6,9 @@ training blend ``tile_blend`` over ``tile_blend_forward`` (TPU
 Each wrapper takes a CUDA tensor to its hand-written Hopper kernel
 (``csrc/render_kernel.cu``, ``csrc/blend_kernels.cu``; both cull exactly
 by the rule in ``csrc/tile_common.cuh``) and adds one to its ``launches``
-count, and a CPU tensor to the plain PyTorch version beside it.
+count, and a CPU tensor to the plain PyTorch version beside it. The
+kernels take every tile and chunk size the plain versions take: larger
+tiles run in groups of pixels, larger chunks in pieces.
 
 ``render_forward`` (tile_kernel.py:816-897): per tile, chunks front to
 back; alpha = min(ALPHA_MAX, opa * e^power), 0 where power > 0 or
@@ -40,10 +42,6 @@ ALPHA_MAX = 0.99
 T_EPS = 1e-4
 
 NUM_FEAT = 9
-MAX_CHUNK = 256     # shared-memory staging limit of the CUDA render
-MAX_PIXELS = 4096   # 32 warps x 128 pixels (4 a thread) per tile
-BLEND_MAX_CHUNK = 128    # the training blend kernels' staging limit
-BLEND_MAX_PIXELS = 1024  # the training blend kernels' tile limit
 
 
 def _tile_chunk_ranges(chunk_meta: torch.Tensor, num_tiles: int):
@@ -151,14 +149,16 @@ def render_forward(feat, chunk_meta, bg, num_tiles: int, n_pix: int,
         raise ValueError("the CUDA render takes a contiguous bf16 feat")
     if not chunk_meta.is_contiguous():
         raise ValueError("chunk_meta must be contiguous")
-    if chunk > MAX_CHUNK or n_pix > MAX_PIXELS:
-        raise ValueError(f"CUDA render supports chunk <= {MAX_CHUNK} and "
-                         f"tiles of <= {MAX_PIXELS} pixels")
+    ext = cuda_ext.load()
     out = torch.empty(num_tiles, 3, n_pix, dtype=torch.bfloat16,
                       device=device)
-    cuda_ext.load().render_forward(feat, chunk_meta,
-                                   bg.float().contiguous(), out, n_pix,
-                                   tile_x, tile_y, grid_x, chunk)
+    # tiles of more than 4,096 pixels keep each pixel group's state between
+    # its own stop and the tile's (render_kernel.cu)
+    scratch = torch.empty(ext.render_scratch_floats(num_tiles, n_pix, tile_x,
+                                                    tile_y),
+                          dtype=torch.float32, device=device)
+    ext.render_forward(feat, chunk_meta, bg.float().contiguous(), out,
+                       scratch, n_pix, tile_x, tile_y, grid_x, chunk)
     render_forward.launches += 1
     return out
 
@@ -336,13 +336,10 @@ def blend_cull_meets(xl, yl, hx, hy, x0, x1, y0, y1):
              | (y0 - yl > hy) | (y1 - yl < -hy))
 
 
-def _check_blend_cuda(feat, chunk_meta, n_pix, chunk, *others) -> None:
+def _check_blend_cuda(feat, chunk_meta, *others) -> None:
     if feat.dtype != torch.float32 or not all(
             t.is_contiguous() for t in (feat, chunk_meta, *others)):
         raise ValueError("the CUDA blend takes contiguous float32 tensors")
-    if chunk > BLEND_MAX_CHUNK or n_pix > BLEND_MAX_PIXELS:
-        raise ValueError(f"CUDA blend supports chunk <= {BLEND_MAX_CHUNK} "
-                         f"and tiles of <= {BLEND_MAX_PIXELS} pixels")
 
 
 def tile_blend_forward(feat, chunk_meta, num_tiles: int, n_pix: int,
@@ -354,7 +351,7 @@ def tile_blend_forward(feat, chunk_meta, num_tiles: int, n_pix: int,
     if feat.device.type == "cpu":
         return tile_blend_forward_plain(feat.float(), chunk_meta, num_tiles,
                                         n_pix, tile_x, tile_y, grid_x, chunk)
-    _check_blend_cuda(feat, chunk_meta, n_pix, chunk)
+    _check_blend_cuda(feat, chunk_meta)
     ct = torch.empty(num_tiles, 4, n_pix, dtype=torch.float32,
                      device=feat.device)
     used = torch.zeros(feat.shape[1], dtype=torch.int32, device=feat.device)
@@ -381,7 +378,7 @@ def tile_blend_backward(feat, chunk_meta, dpack, num_tiles: int, n_pix: int,
         return tile_blend_backward_plain(feat.float(), chunk_meta,
                                          dpack.float(), num_tiles, n_pix,
                                          tile_x, tile_y, grid_x, chunk)
-    _check_blend_cuda(feat, chunk_meta, n_pix, chunk, dpack)
+    _check_blend_cuda(feat, chunk_meta, dpack)
     dfeat = torch.zeros_like(feat)
     cuda_ext.load().blend_backward(feat, chunk_meta, dpack, dfeat, n_pix,
                                    tile_x, tile_y, grid_x, chunk)

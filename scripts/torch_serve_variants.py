@@ -59,11 +59,13 @@ P, LL, I = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
 
 
 def kernel_label(entry):
-    """The report's name of a kernel entry function, or None."""
+    """The report's name of a kernel entry function, or None (the render's
+    instantiation for pixel groups and chunk pieces, template argument
+    true, is "render_kernel_split")."""
     for name in ("render_kernel", "expand_scan_kernel",
                  "expand_reduce_kernel"):
         if name in entry:
-            return name
+            return name + ("_split" if "Lb1E" in entry else "")
     return None
 
 
@@ -74,12 +76,20 @@ def stream():
 
 
 class Render:
-    """gsplat_render_forward of one build, with the wrapper's signature."""
+    """gsplat_render_forward of one build, with the wrapper's signature (a
+    scratch buffer for tiles of several pixel groups, or, in earlier
+    revisions, none)."""
 
     def __init__(self, so):
-        self.fn = ctypes.CDLL(so).gsplat_render_forward
-        self.fn.argtypes = [P, LL, P, I, P, P] + [I] * 6 + [P]
+        lib = ctypes.CDLL(so)
+        self.fn = lib.gsplat_render_forward
         self.fn.restype = I
+        self.scratch = getattr(lib, "gsplat_render_scratch_floats", None)
+        if self.scratch is None:
+            self.fn.argtypes = [P, LL, P, I, P, P] + [I] * 6 + [P]
+        else:
+            self.scratch.argtypes, self.scratch.restype = [I] * 4, LL
+            self.fn.argtypes = [P, LL, P, I, P, P, P] + [I] * 6 + [P]
 
     def __call__(self, feat, meta, bg, num_tiles, n_pix, tile_x, tile_y,
                  grid_x, chunk):
@@ -87,9 +97,15 @@ class Render:
 
         out = torch.empty(num_tiles, 3, n_pix, dtype=torch.bfloat16,
                           device=feat.device)
-        err = self.fn(feat.data_ptr(), feat.shape[1], meta.data_ptr(),
-                      meta.numel(), bg.data_ptr(), out.data_ptr(), num_tiles,
-                      n_pix, tile_x, tile_y, grid_x, chunk, stream())
+        head = [feat.data_ptr(), feat.shape[1], meta.data_ptr(),
+                meta.numel(), bg.data_ptr(), out.data_ptr()]
+        if self.scratch is not None:
+            scratch = torch.empty(self.scratch(num_tiles, n_pix, tile_x,
+                                               tile_y),
+                                  dtype=torch.float32, device=feat.device)
+            head.append(scratch.data_ptr() if scratch.numel() else None)
+        err = self.fn(*head, num_tiles, n_pix, tile_x, tile_y, grid_x, chunk,
+                      stream())
         if err:
             raise RuntimeError(f"render launch failed: {err}")
         return out

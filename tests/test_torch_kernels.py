@@ -70,17 +70,43 @@ def expand_case(k, seed):
     return marks, base_in.astype(np.int32)
 
 
-# (active rows, total rows, slots)
+# (active rows, total rows, slots): ``active`` non-empty ranges followed
+# by empty ones, or a kind of case (``merge_case``): empty ranges
+# interleaved and at the front ("interleaved"), a run of empty ranges longer
+# than a kernel block's 2048 merged items at the front ("front") or at the
+# end ("tailrun"); each with slots more than a block past the last start
 MERGE_CASES = [(50, 80, 700), (1000, 1200, 5000), (3, 5, 40), (0, 4, 30),
-               (600, 600, 512), (513, 513, 2048), (1500, 2000, 9000)]
+               (600, 600, 512), (513, 513, 2048), (1500, 2000, 9000),
+               ("interleaved", 3000, 20000), ("front", 5000, 12000),
+               ("tailrun", 6000, 12000)]
+# cases the JAX kernel does not take (its window of 3 x 512 candidate rows
+# a 512-slot block assumes no long run of empty ranges among live ones):
+# a run of 5000 empty ranges between live ones ("innerrun"), and the main
+# path's size, P = 1M with 900k trailing empty ranges and K = 3.43M as at
+# the 1M training setting ("mainpath")
+MERGE_MORE_CASES = [("innerrun", 6000, 30000), ("mainpath", 1_000_000,
+                                                 3_431_424)]
 
 
 def merge_case(p_act, p_total, seed=0):
-    """Ascending range starts of ``p_act`` non-empty ranges followed by
-    empty ones, random packs, and the live slot count."""
+    """Ascending range starts, random packs and the live slot count:
+    ``p_act`` non-empty ranges followed by empty ones, or the ranges of a
+    kind of case (see MERGE_CASES)."""
     rng = np.random.default_rng(seed)
     counts = np.zeros(p_total, np.int32)
-    counts[:p_act] = rng.integers(1, 9, size=p_act)
+    if isinstance(p_act, int):
+        counts[:p_act] = rng.integers(1, 9, size=p_act)
+    else:
+        counts[:] = rng.integers(1, 61 if p_act == "mainpath" else 9,
+                                 size=p_total)
+        empty = {"interleaved": rng.uniform(size=p_total) < 0.35,
+                 "front": np.arange(p_total) < 3000,
+                 "tailrun": np.arange(p_total) >= 1000,
+                 "innerrun": (np.arange(p_total) >= 500)
+                 & (np.arange(p_total) < 5500),
+                 "mainpath": np.arange(p_total) >= 100_000}[p_act]
+        counts[empty] = 0
+        counts[:5] = 0 if p_act == "interleaved" else counts[:5]
     offsets = np.concatenate([[0], np.cumsum(counts)]).astype(np.int32)
     pack = rng.integers(1, 1 << 23, size=p_total).astype(np.int32)
     return offsets[:p_total], pack, int(offsets[-1])
@@ -117,15 +143,25 @@ def test_expand_scan_plain_matches_loop(k):
         np.testing.assert_array_equal(g.numpy(), w)
 
 
-@pytest.mark.parametrize("p_act,p_total,k", MERGE_CASES)
+@pytest.mark.parametrize("p_act,p_total,k", MERGE_CASES + MERGE_MORE_CASES)
 def test_merge_expand_plain_matches_loop(p_act, p_total, k):
+    """Every slot, live or past the duplicate count, against a walk of the
+    starts in order: the owner is the last range starting at or before
+    the slot."""
     starts, pack, num_dup = merge_case(p_act, p_total)
+    assert k > num_dup or isinstance(p_act, int)
     got = [g.numpy() for g in tscan.merge_expand(
         torch.from_numpy(starts), torch.from_numpy(pack), k)]
-    for d in range(min(num_dup, k)):
-        owner = max(g for g in range(p_total) if starts[g] <= d)
-        assert (got[0][d], got[1][d], got[2][d]) == (
-            pack[owner], starts[owner], owner + 1), d
+    starts_l, owners, owner = starts.tolist(), [], -1
+    for d in range(k):
+        while owner + 1 < p_total and starts_l[owner + 1] <= d:
+            owner += 1
+        owners.append(owner)
+    g = np.asarray(owners, np.int64)
+    has = g >= 0
+    np.testing.assert_array_equal(got[0], np.where(has, pack[g], 0))
+    np.testing.assert_array_equal(got[1], np.where(has, starts[g], 0))
+    np.testing.assert_array_equal(got[2], g + 1)
 
 
 def test_tile_histogram_is_exact():
@@ -225,22 +261,27 @@ def stream_meta(tiles):
     return (tl << 2) | (first << 1) | last
 
 
-def render_stop_case(seed=0, half=False, chunk=128, tile_x=128, tile_y=32):
+def render_stop_case(seed=0, half=False, chunk=128, tile_x=128, tile_y=32,
+                     top=None, fill=None):
     """One tile of four chunks: the first two hold dense opaque splats over
     the whole tile (the tile-wide stop fires after the second) or, with
     ``half``, smaller ones over its top rows (rows 0-7 end below 1e-4, the
     lower half does not, so the tile walks all four chunks and the
     saturated pixels keep compositing); the last two hold small splats
-    anywhere. A trailing sentinel chunk."""
+    anywhere. ``top`` moves the half case's lowest splat centre (3/8 of
+    the tile down by default); ``fill`` leaves only the first ``fill``
+    slots of each chunk live (the rest padding, opacity 0). A trailing
+    sentinel chunk."""
     rng = np.random.default_rng(seed)
     tiles = [0, 0, 0, 0, 1]
     feat = np.zeros((9, len(tiles) * chunk), np.float32)
+    chunk_all, chunk = chunk, fill or chunk
     for ci in range(4):
-        s = slice(ci * chunk, (ci + 1) * chunk)
+        s = slice(ci * chunk_all, ci * chunk_all + chunk)
         if ci < 2:
             lo, hi = (0.03, 0.06) if half else (0.005, 0.02)
             feat[0, s] = rng.uniform(-4, tile_x + 4, chunk)
-            feat[1, s] = rng.uniform(-2, 3 * tile_y / 8 if half
+            feat[1, s] = rng.uniform(-2, (top or 3 * tile_y / 8) if half
                                      else tile_y + 2, chunk)
             feat[2, s] = feat[4, s] = rng.uniform(lo, hi, chunk)
             feat[5, s] = rng.uniform(0.95, 1.0, chunk)
@@ -253,7 +294,7 @@ def render_stop_case(seed=0, half=False, chunk=128, tile_x=128, tile_y=32):
         feat[6:9, s] = rng.uniform(0, 1, (3, chunk))
     return bf16(feat), stream_meta(tiles), dict(
         num_tiles=1, n_pix=tile_x * tile_y, tile_x=tile_x, tile_y=tile_y,
-        grid_x=1, chunk=chunk)
+        grid_x=1, chunk=chunk_all)
 
 
 def render_graze_case(seed=0, tile_x=128, tile_y=32, chunk=128):
@@ -315,14 +356,26 @@ def render_empty_case(chunk=32, tile_x=16, tile_y=16):
                  tile_y=tile_y, grid_x=3, chunk=chunk))
 
 
-# (chunk, tile_x, tile_y) of render_case's six tiles, or a case function
+# (chunk, tile_x, tile_y) of render_case's six tiles, or a case function.
+# Above 4,096 pixels (two groups of 32 warp blocks: rows 0-31 and 32-63 of
+# a 128 x 64 tile) and 256-slot chunks (two pieces) the kernel's tile-wide
+# stop spans groups: "stop-128x64-c512" (256 live slots a chunk, the
+# density of "stop-128x32-c128") stops both groups after two chunks; in
+# "halfstop-128x64-c512" the top group is all below 1e-4 after
+# two chunks and the bottom one never, so the top group resumes from its
+# kept state and composites the last two chunks too
 RENDER_CASES = {"128x32-c128": (128, 128, 32), "128x32-c256": (256, 128, 32),
                 "16x16-c16": (16, 16, 16), "ragged-24x10-c32": (32, 24, 10),
                 "thin-256x4-c128": (128, 256, 4),
                 "stop-128x32-c128": lambda: render_stop_case(),
                 "halfstop-128x32-c128": lambda: render_stop_case(half=True),
                 "empty-16x16-c32": render_empty_case,
-                "graze-128x32-c128": lambda: render_graze_case()[:3]}
+                "graze-128x32-c128": lambda: render_graze_case()[:3],
+                "128x64-c512": (512, 128, 64),
+                "stop-128x64-c512": lambda: render_stop_case(
+                    chunk=512, tile_y=64, fill=256),
+                "halfstop-128x64-c512": lambda: render_stop_case(
+                    half=True, chunk=512, tile_y=64, top=34)}
 
 
 def render_stream(case, seed=0):
@@ -472,6 +525,31 @@ def test_render_staged_power_matches_plain_form_bitwise():
     assert torch.equal(got.view(torch.int32), want.view(torch.int32))
 
 
+def test_render_halfstop_case_stops_one_pixel_group_early():
+    """The 8,192-pixel half-stop case does what the card's test needs: after
+    its first two chunks every pixel of the top 32 rows (the kernel's
+    first group of 32 warp blocks) is at T <= 1e-4 and some pixel of the
+    bottom 32 is not, so the tile walks all four chunks (plain render on
+    the CPU; with black splats over a white background the image is T)."""
+    feat, meta, kw = RENDER_CASES["halfstop-128x64-c512"]()
+    chunk, n_pix = kw["chunk"], kw["n_pix"]
+    two = feat[:, :2 * chunk].copy()
+    two[6:9] = 0.0
+    img, visits = ttile.render_plain_with_visits(
+        torch.from_numpy(two).to(torch.bfloat16),
+        torch.from_numpy(stream_meta([0, 0])), torch.ones(3),
+        num_tiles=1, n_pix=n_pix, tile_x=kw["tile_x"], tile_y=kw["tile_y"],
+        grid_x=1, chunk=chunk)
+    t = img[0, 0].float().reshape(kw["tile_y"], kw["tile_x"])
+    assert int(visits[0]) == 2
+    assert float(t[:32].max()) <= ttile.T_EPS
+    assert float(t[32:].max()) > ttile.T_EPS
+    _, visits = ttile.render_plain_with_visits(
+        torch.from_numpy(feat).to(torch.bfloat16), torch.from_numpy(meta),
+        torch.tensor(BG), **kw)
+    assert int(visits[0]) == 4
+
+
 def test_render_passing_pairs_match_loop():
     """The plain render's stats: the visited chunks and the (pixel, slot)
     pairs of those chunks that pass 1/255, against a numpy loop."""
@@ -554,9 +632,12 @@ def graze_case(seed=0, tile_x=32, tile_y=16, chunk=128):
 
 
 # (chunk, tile_x, tile_y) of render_case's six tiles, or the grazing case
+# (four groups of 8 warp blocks and two 128-slot pieces a chunk at
+# 128x32-c256; eight groups and four pieces at 128x64-c512)
 BLEND_CASES = {"8x4-c16": (16, 8, 4), "16x16-c128": (128, 16, 16),
                "64x16-c128": (128, 64, 16), "ragged-24x10-c32": (32, 24, 10),
-               "thin-256x4-c128": (128, 256, 4), "graze-32x16-c128": None}
+               "thin-256x4-c128": (128, 256, 4), "graze-32x16-c128": None,
+               "128x32-c256": (256, 128, 32), "128x64-c512": (512, 128, 64)}
 
 
 def blend_case(case="8x4-c16", seed=0):
@@ -926,13 +1007,17 @@ def test_expand_scan_cuda_stays_in_its_state_buffer(cuda, k):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("p_act,p_total,k", MERGE_CASES)
+@pytest.mark.parametrize("p_act,p_total,k", MERGE_CASES + MERGE_MORE_CASES)
 def test_merge_expand_cuda_matches_plain(cuda, p_act, p_total, k):
+    """The merge-path kernel bit-equal to the plain version on every slot,
+    one launch a call."""
     starts, pack, _ = merge_case(p_act, p_total)
     s, p = torch.from_numpy(starts), torch.from_numpy(pack)
     want = tscan.merge_expand_plain(s, p, k)
+    before = tscan.merge_expand.launches
     got = tscan.merge_expand(s.to(cuda), p.to(cuda), k)
     torch.cuda.synchronize()
+    assert tscan.merge_expand.launches == before + 1
     for g, w in zip(got, want):
         assert torch.equal(g.cpu(), w)
 
@@ -1029,6 +1114,55 @@ def test_multi_cumsum_cuda_matches_plain(cuda, k):
     plain = tscan.multi_cumsum_plain(x.to(cuda)).cpu().double()
     assert bool(((got.cpu().double() - plain).abs()
                  <= 2e-3 + 1e-5 * plain.abs()).all())
+
+
+@pytest.mark.gpu
+def test_multi_cumsum_cuda_launches_are_bit_equal(cuda):
+    """Five launches on one input give the same bits (the look-back folds
+    the carry in block order whatever it finds published), within the
+    float64 gate, on 9 rows of 2^22 + 3 (257 tiles a row, rows not
+    16-byte aligned)."""
+    rng = np.random.default_rng(4)
+    k = (1 << 22) + 3
+    x = torch.from_numpy(rng.normal(size=(9, k)).astype(np.float32) + 0.5)
+    want = torch.cumsum(x.double(), dim=1)
+    xc = x.to(cuda)
+    before = tscan.multi_cumsum.launches
+    outs = [tscan.multi_cumsum(xc) for _ in range(5)]
+    torch.cuda.synchronize()
+    assert tscan.multi_cumsum.launches == before + 5
+    for o in outs[1:]:
+        assert torch.equal(o, outs[0])
+    err = (outs[0].cpu().double() - want).abs()
+    assert bool((err <= 2e-3 + 1e-5 * want.abs()).all()), float(err.max())
+
+
+@pytest.mark.gpu
+def test_expand_scan_and_multi_cumsum_keep_separate_state(cuda):
+    """expand_scan and multi_cumsum called in turns on one stream, each
+    against its plain version: neither reads the other's look-back state
+    (each kernel has its own buffer and epochs)."""
+    marks, base_in = expand_kind_case("dense", 41 * 4096 + 5, seed=2)
+    m, b = torch.from_numpy(marks), torch.from_numpy(base_in)
+    want_e = tscan.expand_scan_plain(m, b)
+    rng = np.random.default_rng(6)
+    x = torch.from_numpy(rng.normal(size=(9, 37 * 4096 + 11)).astype(
+        np.float32))
+    want_c = torch.cumsum(x.double(), dim=1)
+    mc, bc, xc = m.to(cuda), b.to(cuda), x.to(cuda)
+    first = None
+    for _ in range(3):
+        got_e = tscan.expand_scan(mc, bc)
+        got_c = tscan.multi_cumsum(xc)
+        torch.cuda.synchronize()
+        for g, w in zip(got_e, want_e):
+            assert torch.equal(g.cpu(), w)
+        err = (got_c.cpu().double() - want_c).abs()
+        assert bool((err <= 2e-3 + 1e-5 * want_c.abs()).all())
+        first = got_c if first is None else first
+        assert torch.equal(got_c, first)
+    keys = {key[0] for key in tscan._LOOKBACK}
+    assert {"expand_scan", "multi_cumsum"} <= keys
 
 
 @pytest.mark.gpu
