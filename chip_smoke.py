@@ -20,6 +20,9 @@ It builds the CUDA kernels from gsplat_tpu_torch/csrc, then
                   statistics, 4 cameras; the reduction is sort +
                   multi_cumsum (P > 250k rows)
   both binning through merge_expand;
+- renders and scores a 1M-row model through the eval entry points
+  (eval/render.py, eval/metrics.py) on a synthetic COLMAP scene at
+  1237x822;
 - trains in bench.py's SwinGS setting (bench.py:432-493, its draws
   continued): 200k immature rows + a 200k-row matured ring (a 400k-row
   union), swin 8, SH 1, deform, 1280x720, 4 cameras; merge_expand and the
@@ -41,7 +44,8 @@ the result line is printed:
                and the share of (warp block / sub-block, slot) pairs its
                cull keeps; and
                multi_cummax (on no path) bit-equal to torch.cummax at
-               3 x 8M, beside torch.cummax's time
+               3 x 8M, one launch a call, two launches bit-equal,
+               beside torch.cummax's time
   small        a 300-Gaussian scene rendered on the card vs the port on
                the CPU
   serve        per setting, launch counts zeroed, its 8 cameras rendered
@@ -80,6 +84,20 @@ the result line is printed:
   cli          python -m gsplat_tpu_torch.train.train_static on the
                committed Blender fixture (300 iterations), held-out PSNR
                >= 21.0 dB
+  eval         eval-1m-1237x822: a synthetic COLMAP scene at MipNeRF-360
+               bicycle's images_4 size (1237x822, 24 orbit views, 3 held
+               out, a 100k-point points3D.bin, ground truths rendered from
+               bench.py's ground-truth scene) and the 1M setting's trained
+               state saved at iteration 30000; python -m
+               gsplat_tpu_torch.eval.render (both splits, --cap_max 1M:
+               auto k_dup 6M, expand_scan) in a subprocess whose launch
+               counts must be one expand_scan and one blend forward a view
+               and nothing else, num_dup <= k_dup every view, test view 0
+               rendered in process to the CLI's PNG bytes; python -m
+               gsplat_tpu_torch.eval.metrics with a random-weight VGG npz
+               (not LPIPS weights): SSIM / PSNR equal to the port's losses
+               on the same PNG pairs within 1e-6, LPIPS finite and equal
+               on the card and the CPU within 1e-5 relative
   swin_train   counts zeroed: one warm step and 3 windows of 10 fused
                swin steps (frame it % 8, camera it % 4), one blend
                forward, blend backward, merge_expand and multi_cumsum a
@@ -97,6 +115,7 @@ the result line is printed:
                time); the idle share against the unprofiled frame time
   train_profile  the same for 3 training steps per setting
   swin_profile   the same for 3 swin steps
+  cummax_profile multi_cummax's own device time beside its event time
 
 Then the card's name and power limit (nvidia-smi), the kernels line and
 {"ok": true, "device": {...}} as the last line. Exits non-zero with no
@@ -179,13 +198,12 @@ def write_scene_ply(path: str, p: int, sh_degree: int, seed: int = 0):
                           opa_logit[:, None], log_scales, quats)
 
 
-def orbit_cameras(n, w, h, device, radius=6.0, center=(0.0, 0.0, 4.0)):
-    """__graft_entry__._orbit_cameras: n cameras on a circle around the
-    cloud, all looking at its center."""
-    from gsplat_tpu_torch.core.camera import make_camera
-
+def orbit_poses(n, radius=6.0, center=(0.0, 0.0, 4.0)):
+    """__graft_entry__._orbit_cameras' poses: n cameras on a circle around
+    the cloud, all looking at its center; (camera-to-world rotation,
+    position) each."""
     c = np.asarray(center)
-    cams = []
+    poses = []
     for i in range(n):
         th = 2 * np.pi * i / max(n, 1)
         pos = c + radius * np.array([np.sin(th), 0.0, -np.cos(th)])
@@ -193,10 +211,17 @@ def orbit_cameras(n, w, h, device, radius=6.0, center=(0.0, 0.0, 4.0)):
         up = np.array([0.0, 1.0, 0.0])
         right = np.cross(up, fwd)
         right /= np.linalg.norm(right)
-        rcw = np.stack([right, up, fwd], 1)
-        cams.append(make_camera(rcw, -rcw.T @ pos, 0.9, 0.9, w, h,
-                                device=device))
-    return cams
+        poses.append((np.stack([right, up, fwd], 1), pos))
+    return poses
+
+
+def orbit_cameras(n, w, h, device, radius=6.0, center=(0.0, 0.0, 4.0)):
+    """__graft_entry__._orbit_cameras: n cameras on a circle around the
+    cloud, all looking at its center."""
+    from gsplat_tpu_torch.core.camera import make_camera
+
+    return [make_camera(rcw, -rcw.T @ pos, 0.9, 0.9, w, h, device=device)
+            for rcw, pos in orbit_poses(n, radius, center)]
 
 
 # -------------------------------------------------------------- helpers ----
@@ -551,25 +576,62 @@ def check_merge_expand(starts, pack, kk, card_name, **extra):
 CUMMAX_SHAPE = (3, 8_000_000)
 
 
-def check_multi_cummax(card_name):
-    """multi_cummax (on no path of the system) bit-equal to torch.cummax
-    per row at n = 3, K = 8M, values drawn from numpy's generator at seed
-    0, INT_MIN in a prefix of row 0 (the TPU wrapper's padding value)."""
+def cummax_input():
+    """multi_cummax's input (the kernel is on no path of the system): n =
+    3, K = 8M int32 drawn from numpy's generator at seed 0, INT_MIN in a
+    prefix of row 0 (the TPU wrapper's padding value)."""
     import torch
-
-    from gsplat_tpu_torch.raster import scan_kernel
 
     n, k = CUMMAX_SHAPE
     rng = np.random.default_rng(0)
     host = rng.integers(-2**31, 2**31, size=(n, k), dtype=np.int64)
     host[0, :4096 + 77] = -2**31
-    x = torch.as_tensor(host.astype(np.int32), device=DEVICE)
+    return torch.as_tensor(host.astype(np.int32), device=DEVICE)
+
+
+def device_ms(fn, reps, names):
+    """Mean device milliseconds a call of ``fn`` spends in kernels whose
+    name holds one of ``names`` (torch.profiler's CUDA activity): the
+    kernels alone, without the host time of the call, which bounds event
+    times of a few microseconds. A profiler session slows the host for the
+    rest of the process: call it after every wall-clock timing."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    total = sum(e.self_device_time_total for e in prof.key_averages()
+                if any(n in e.key for n in names))
+    return total / 1e3 / reps
+
+
+def check_multi_cummax(card_name):
+    """multi_cummax bit-equal to torch.cummax per row on
+    ``cummax_input()``, one launch a call, two launches bit-equal; its
+    event time (``ms``) beside torch.cummax's. Its device time is taken
+    in the profile phase (``cummax_device_ms``)."""
+    import torch
+
+    from gsplat_tpu_torch.raster import scan_kernel
+
+    x = cummax_input()
+    n, k = x.shape
+    before = scan_kernel.multi_cummax.launches
     got = scan_kernel.multi_cummax(x)
+    again = scan_kernel.multi_cummax(x)
     want = scan_kernel.multi_cummax_plain(x)
     torch.cuda.synchronize()
+    if scan_kernel.multi_cummax.launches != before + 2:
+        raise AssertionError("multi_cummax: not one launch a call")
     err = int((got.long() - want.long()).abs().max())
     if not torch.equal(got, want):
         raise AssertionError(f"multi_cummax differs from plain: {err}")
+    if not torch.equal(got, again):
+        raise AssertionError("two multi_cummax launches differ")
     entry = dict(
         name="multi_cummax", route="cuda",
         source="gsplat_tpu_torch/csrc/scan_kernels.cu",
@@ -582,6 +644,19 @@ def check_multi_cummax(card_name):
         shape=f"n={n} K={k}")
     log("kernel", card=card_name, **entry)
     return entry
+
+
+def cummax_device_ms(entry, card_name):
+    """multi_cummax's own device time (torch.profiler) on its input, beside
+    the event time of the kernel phase: logged and kept in ``entry``."""
+    from gsplat_tpu_torch.raster import scan_kernel
+
+    x = cummax_input()
+    entry["device_ms"] = device_ms(lambda: scan_kernel.multi_cummax(x), 20,
+                                   ("multi_cummax_kernel",))
+    log("cummax_profile", card=card_name, name="multi_cummax",
+        shape=entry["shape"], ms=entry["ms"], device_ms=entry["device_ms"],
+        bound_ms=entry["bound_ms"])
 
 
 def check_small(card_name):
@@ -1027,19 +1102,16 @@ def blend_kwargs(args):
                             tile_y=tile_y, grid_x=grid_x, chunk=chunk)
 
 
-def check_blend(setting, forward, backward, feat, meta, dpack, kw, want):
-    """Hold one build's blend forward and backward (callables with the
-    wrappers' signatures) against the plain versions' ``want`` = (ct,
-    used, dfeat): colour and T within 1e-5 and used > 0 identical per slot
-    (flips at the 1e-4 stop threshold, if any, show as whole pixels beyond
-    tolerance; both counts are gated at zero), each dfeat row within 1e-4
-    of its maximum, two backward launches bit-equal. Returns the errors."""
+def check_blend_forward(setting, forward, feat, meta, kw, want):
+    """Hold one build's blend forward (a callable with the wrapper's
+    signature) against the plain version's ``want`` = (ct, used): colour
+    and T within 1e-5 and used > 0 identical per slot (flips at the 1e-4
+    stop threshold, if any, show as whole pixels beyond tolerance; both
+    counts are gated at zero). Returns the errors."""
     import torch
 
-    want_ct, want_used, want_d = want
+    want_ct, want_used = want
     got_ct, got_used = forward(feat, meta, **kw)
-    got = backward(feat, meta, dpack, **kw)
-    again = backward(feat, meta, dpack, **kw)
     torch.cuda.synchronize()
     bad_pix = int(((got_ct - want_ct).abs().amax(dim=1) > 1e-5).sum())
     bad_slots = int(((got_used > 0) != (want_used > 0)).sum())
@@ -1047,6 +1119,24 @@ def check_blend(setting, forward, backward, feat, meta, dpack, kw, want):
         raise AssertionError(f"{setting}: blend forward vs plain: {bad_pix} "
                              f"pixels beyond 1e-5, {bad_slots} slots differ "
                              f"in used > 0")
+    return dict(fwd_max_abs_err=float((got_ct - want_ct).abs().max()),
+                flips=bad_pix, used_mismatch=bad_slots)
+
+
+def check_blend(setting, forward, backward, feat, meta, dpack, kw, want):
+    """Hold one build's blend forward and backward (callables with the
+    wrappers' signatures) against the plain versions' ``want`` = (ct,
+    used, dfeat): the forward by check_blend_forward's gates, each dfeat
+    row within 1e-4 of its maximum, two backward launches bit-equal.
+    Returns the errors."""
+    import torch
+
+    want_ct, want_used, want_d = want
+    fwd = check_blend_forward(setting, forward, feat, meta, kw,
+                              (want_ct, want_used))
+    got = backward(feat, meta, dpack, **kw)
+    again = backward(feat, meta, dpack, **kw)
+    torch.cuda.synchronize()
     row_max = want_d.abs().amax(dim=1)
     row_err = (got - want_d).abs().amax(dim=1)
     if bool((row_err > 1e-4 * row_max).any()):
@@ -1056,9 +1146,21 @@ def check_blend(setting, forward, backward, feat, meta, dpack, kw, want):
     if not torch.equal(got, again):
         raise AssertionError(f"{setting}: two blend backward launches differ")
     return dict(
-        fwd_max_abs_err=float((got_ct - want_ct).abs().max()),
-        flips=bad_pix, bwd_max_abs_err=float((got - want_d).abs().max()),
+        fwd_max_abs_err=fwd["fwd_max_abs_err"], flips=fwd["flips"],
+        bwd_max_abs_err=float((got - want_d).abs().max()),
         max_rel_row_err=float((row_err / row_max.clamp(min=1e-30)).max()))
+
+
+def blend_bytes(meta, kw, stats, k, out_bytes_per_slot):
+    """The bytes a blend launch must move: the visited chunks' slots (9
+    floats each) and the chunk table, 4 floats a pixel, and
+    ``out_bytes_per_slot`` for each of the ``k`` slots. With the passing pairs'
+    ops this gives bound_ms, the work this run's data needs (alpha >=
+    1/255); bound_all_pairs_ms counts every pair whose pixel is not done
+    (the work without culling), the first kernels' bound."""
+    slot_bytes = stats["chunks"] * kw["chunk"] * 36 + meta.numel() * 4
+    return (slot_bytes + kw["num_tiles"] * 16 * kw["n_pix"]
+            + out_bytes_per_slot * k)
 
 
 def check_training_kernels(caps, card_name):
@@ -1089,7 +1191,7 @@ def _check_training_kernels(caps, card_name):
         errs = check_blend(name, tile_kernel.tile_blend_forward,
                            tile_kernel.tile_blend_backward, feat, meta, dpack,
                            kw, (want_ct, want_used, want_d))
-        k, n_pix = feat.shape[1], kw["n_pix"]
+        k = feat.shape[1]
         shape = (f"tiles={kw['num_tiles']} slots={k} visited_chunks="
                  f"{stats['chunks']} live_pairs={stats['pairs']}")
         cull = dict(passing_pairs=stats["passing"],
@@ -1099,19 +1201,14 @@ def _check_training_kernels(caps, card_name):
                     kept_sub_block_slot_share=kept_slot_share(
                         feat, meta, stats["visited"], kw,
                         tile_kernel.BLEND_SUB_BLOCK))
-        # bound_ms: the work this run's data needs, the pairs that pass
-        # alpha >= 1/255; bound_all_pairs_ms: every pair whose pixel is not
-        # done (the work without culling), the first kernels' bound
-        slot_bytes = stats["chunks"] * kw["chunk"] * 36 + meta.numel() * 4
-        pix_bytes = kw["num_tiles"] * 16 * n_pix
         for kname, tpu_line, nbytes, ops, run, plain in (
-                ("tile_blend_forward", 348, slot_bytes + pix_bytes + 4 * k,
-                 BLEND_FWD_OPS_PER_PAIR,
+                ("tile_blend_forward", 348,
+                 blend_bytes(meta, kw, stats, k, 4), BLEND_FWD_OPS_PER_PAIR,
                  lambda: tile_kernel.tile_blend_forward(feat, meta, **kw),
                  lambda: tile_kernel.tile_blend_forward_plain(feat, meta,
                                                               **kw)),
                 ("tile_blend_backward", 526,
-                 slot_bytes + pix_bytes + 36 * k, BLEND_BWD_OPS_PER_PAIR,
+                 blend_bytes(meta, kw, stats, k, 36), BLEND_BWD_OPS_PER_PAIR,
                  lambda: tile_kernel.tile_blend_backward(feat, meta, dpack,
                                                          **kw),
                  lambda: tile_kernel.tile_blend_backward_plain(
@@ -1501,6 +1598,286 @@ def cli_phase(card_name):
     log("cli", card=card_name, iterations=300, seconds=seconds,
         heldout_psnr_db=mean, per_view_db=psnrs,
         n_alive=state.n_alive)
+
+
+# ---------------------------------------------------------------- eval ----
+
+# The evaluation path at MipNeRF-360 bicycle's images_4 size (the
+# "-i images_4" job of eval/full_eval.py): a synthetic COLMAP scene of 24
+# views on a circle of radius 4 around the origin, looking at it (llffhold
+# 8: 3 test views), with a 100k-point points3D.bin,
+# ground truths rendered by the port from bench.py's ground-truth scene, a
+# 1M-row trained-statistics SH-3 model at iteration 30000, rendered at
+# --cap_max 1000000 (auto k_dup 6,000,000: 2 K >= 7 P, expand_scan).
+EVAL = dict(width=1237, height=822, views=24, points=100_000, cap=1_000_000,
+            iteration=30_000, images="images_4")
+EVAL_NAME = "eval-1m-1237x822"
+# runs a module as __main__ (what python -m does) and prints the kernel
+# wrappers' launch counts of that process afterwards
+RUN_COUNTED = (
+    "import json, runpy, sys\n"
+    "from gsplat_tpu_torch.raster import scan_kernel as s, tile_kernel as t\n"
+    "mod = sys.argv[1]\n"
+    "sys.argv = [mod] + sys.argv[2:]\n"
+    "runpy.run_module(mod, run_name='__main__', alter_sys=True)\n"
+    "print('LAUNCHES ' + json.dumps({f.__name__: f.launches for f in (\n"
+    "    s.expand_scan, s.merge_expand, s.multi_cumsum, s.multi_cummax,\n"
+    "    t.render_forward, t.tile_blend_forward, t.tile_blend_backward)}))\n")
+
+
+def write_eval_scene(root, state):
+    """The synthetic COLMAP scene (binary sparse/0, one PINHOLE camera,
+    EVAL["views"] orbit images written as PNGs rendered from
+    bench_gt_scene) and the model directory (``state`` saved as
+    point_cloud/iteration_30000/point_cloud.ply, a cfg_args)."""
+    import argparse
+    import shutil
+
+    import torch
+
+    from gsplat_tpu_torch.core.camera import fov2focal, make_camera
+    from gsplat_tpu_torch.data import colmap, readers
+    from gsplat_tpu_torch.eval.render import save_png
+    from gsplat_tpu_torch.model import gaussians
+    from gsplat_tpu_torch.raster import rasterize as rast
+    from gsplat_tpu_torch.train.config import ModelConfig, save_cfg_args
+
+    w, h, n = EVAL["width"], EVAL["height"], EVAL["views"]
+    src, model = os.path.join(root, "scene"), os.path.join(root, "model")
+    for d in (src, model):
+        shutil.rmtree(d, ignore_errors=True)
+    sparse = os.path.join(src, "sparse", "0")
+    os.makedirs(sparse)
+    rng = np.random.default_rng(7)
+    focal = fov2focal(0.9, w)
+    colmap.write_cameras_binary(os.path.join(sparse, "cameras.bin"), {
+        1: colmap.ColmapCamera(1, "PINHOLE", w, h,
+                               np.array([focal, focal, w / 2, h / 2]))})
+    imgs = {}
+    for i, (rcw, pos) in enumerate(orbit_poses(n, radius=4.0,
+                                                center=(0.0, 0.0, 0.0))):
+        imgs[i + 1] = colmap.ColmapImage(
+            i + 1, colmap.rotmat2qvec(rcw.T), -rcw.T @ pos, 1,
+            f"view_{i:03d}.png")
+    colmap.write_images_binary(os.path.join(sparse, "images.bin"), imgs)
+    colmap.write_points3d_binary(
+        os.path.join(sparse, "points3D.bin"),
+        rng.uniform(-1, 1, (EVAL["points"], 3)),
+        rng.integers(0, 256, (EVAL["points"], 3)).astype(np.uint8))
+    info = readers.read_colmap_scene(src, images=EVAL["images"])
+    gt = bench_gt_scene(rng, TRAIN_P_GT, DEVICE)
+    settings = rast.RasterizeSettings(k_dup=4_000_000, tile_x=64,
+                                      tile_y=16, chunk=128)
+    bg = torch.zeros(3, device=DEVICE)
+    dups = []
+    with torch.no_grad():
+        for c in info.train_cameras + info.test_cameras:
+            out = rast.rasterize(*gt, make_camera(c.R, c.T, c.fovx, c.fovy,
+                                                  w, h, device=DEVICE),
+                                 SH_DEGREE, bg, settings)
+            dups.append(int(out.num_dup))
+            save_png(c.image_path, out.image.clamp(0, 1).cpu().numpy())
+    if max(dups) > settings.k_dup:
+        raise AssertionError(f"eval ground truths: num_dup {max(dups)}")
+    gaussians.save_ply(state, os.path.join(
+        model, "point_cloud", f"iteration_{EVAL['iteration']}",
+        "point_cloud.ply"))
+    save_cfg_args(model, argparse.Namespace(**{
+        **{f: getattr(ModelConfig(), f) for f in (
+            "sh_degree", "resolution", "white_background", "data_device",
+            "init_pts", "init_type")},
+        "source_path": src, "model_path": model, "images": EVAL["images"],
+        "eval": True, "cap_max": EVAL["cap"]}))
+    return src, model, len(info.test_cameras)
+
+
+def run_counted(args, log_path, env=None):
+    """``python -m args[0] args[1:]`` in a subprocess (RUN_COUNTED), its
+    output in ``log_path``; returns (stdout, the wrappers' launch counts of
+    that process)."""
+    res = subprocess.run([sys.executable, "-c", RUN_COUNTED] + args,
+                         cwd=ROOT, capture_output=True, text=True,
+                         timeout=600, env=env)
+    with open(log_path, "w") as f:
+        f.write(res.stdout + res.stderr)
+    if res.returncode:
+        raise RuntimeError(f"{args[0]} rc={res.returncode}: "
+                           + (res.stdout + res.stderr)[-3000:])
+    line = [ln for ln in res.stdout.splitlines()
+            if ln.startswith("LAUNCHES ")][-1]
+    return res.stdout, json.loads(line[len("LAUNCHES "):])
+
+
+def check_eval_kernels(expand_args, blend_args):
+    """The eval render's two kernels against their plain versions on the
+    inputs of one view (recorded: expand_scan's arguments, the blend
+    forward's launch): expand_scan bit-equal (check_expand), the blend
+    forward by check_blend_forward's gates; their times at this shape.
+    Returns the eval line's fields."""
+    import torch
+
+    from gsplat_tpu_torch.raster import scan_kernel, tile_kernel
+
+    with torch.no_grad():
+        marks, base_in = expand_args
+        k = marks.shape[0]
+        expand_err = check_expand(
+            scan_kernel.expand_scan, marks, base_in,
+            scan_kernel.expand_scan_plain(marks, base_in))
+        feat, meta, kw = blend_kwargs(blend_args)
+        stats = {}
+        want = tile_kernel._blend_plain(feat, meta, stats=stats, **kw)
+        errs = check_blend_forward(EVAL_NAME, tile_kernel.tile_blend_forward,
+                                   feat, meta, kw, want)
+        b_ms, b_by = bound(blend_bytes(meta, kw, stats, feat.shape[1], 4),
+                           stats["passing"] * BLEND_FWD_OPS_PER_PAIR)
+        return dict(
+            expand_scan=dict(
+                shape=f"K={k}", max_abs_err=expand_err,
+                ms=cuda_ms(lambda: scan_kernel.expand_scan(marks, base_in),
+                           20),
+                plain_ms=cuda_ms(lambda: scan_kernel.expand_scan_plain(
+                    marks, base_in), 2),
+                bound_ms=20 * k / MEM_BPS * 1e3,
+                bound_by="bytes", repeat_bit_equal=True),
+            tile_blend_forward=dict(
+                shape=f"tiles={kw['num_tiles']} slots={feat.shape[1]} "
+                      f"visited_chunks={stats['chunks']} "
+                      f"live_pairs={stats['pairs']}",
+                passing_pairs=stats["passing"],
+                max_abs_err=errs["fwd_max_abs_err"], flips=errs["flips"],
+                used_mismatch=errs["used_mismatch"],
+                ms=cuda_ms(lambda: tile_kernel.tile_blend_forward(
+                    feat, meta, **kw), 10),
+                plain_ms=cuda_ms(lambda: tile_kernel.tile_blend_forward_plain(
+                    feat, meta, **kw), 1, warmup=0),
+                bound_ms=b_ms, bound_by=b_by))
+
+
+def eval_phase(state, card_name):
+    """The eval entry points on the card, each in a subprocess: render
+    (both splits, launch counts of that process: one expand_scan and one
+    blend forward a view, nothing else), then metrics with a random-weight
+    VGG npz (NOT LPIPS weights: the numbers exercise the path, they are no
+    quality measure). Checks: test view 0 rendered in process gives the
+    CLI's PNG bytes, and its expand_scan and blend forward inputs give the
+    plain versions' results (check_eval_kernels); num_dup <= k_dup in
+    every view; results.json's SSIM
+    and PSNR equal the port's losses on the same PNG pairs within 1e-6;
+    LPIPS finite, and on the card within 1e-5 relative of the same call on
+    the CPU (view 0)."""
+    import torch
+
+    from gsplat_tpu_torch.data.scene import Scene
+    from gsplat_tpu_torch.eval import lpips as lp
+    from gsplat_tpu_torch.eval import metrics
+    from gsplat_tpu_torch.eval.render import render_view, save_png
+    from gsplat_tpu_torch.model import gaussians
+    from gsplat_tpu_torch.raster import binning
+    from gsplat_tpu_torch.train import losses
+    from gsplat_tpu_torch.train.config import PipelineConfig
+    from gsplat_tpu_torch.train.train_static import make_settings
+
+    root = os.path.join(WORK, "eval")
+    t0 = time.time()
+    src, model, n_test = write_eval_scene(root, state)
+    setup_s = time.time() - t0
+    it = EVAL["iteration"]
+    # the entry points default to the card; a rehearsal on the CPU says so
+    device = [] if DEVICE == "cuda" else ["--data_device", DEVICE]
+    torch.cuda.empty_cache()   # the subprocesses need the card's memory
+    t0 = time.time()
+    out, launches = run_counted(
+        ["gsplat_tpu_torch.eval.render", "-m", model, "-s", src, "--eval",
+         "--cap_max", str(EVAL["cap"]), "-i", EVAL["images"]] + device,
+        os.path.join(root, "render.log"))
+    render_s = time.time() - t0
+    views = [ln.split() for ln in out.splitlines() if ln.startswith("view ")]
+    fields = [dict(kv.split("=") for kv in v[3:]) for v in views]
+    n_views = len(views)
+    want = {k: 0 for k in launches}
+    want.update(expand_scan=n_views, tile_blend_forward=n_views)
+    if n_views != EVAL["views"] or launches != want:
+        raise AssertionError(f"eval render: {n_views} views, launches "
+                             f"{launches}, expected {want}")
+    num_dup = [int(f["num_dup"]) for f in fields]
+    k_dup = int(fields[0]["k_dup"])
+    if max(num_dup) > k_dup or 2 * k_dup < 7 * EVAL["cap"]:
+        raise AssertionError(f"eval render: num_dup {num_dup}, k_dup {k_dup}")
+
+    # test view 0 in process, through the same functions, its two kernels'
+    # inputs recorded
+    scene = Scene(src, "", images=EVAL["images"], shuffle=False,
+                  device=DEVICE)
+    loaded = gaussians.load_ply(os.path.join(
+        model, "point_cloud", f"iteration_{it}", "point_cloud.ply"),
+        capacity=EVAL["cap"], max_sh_degree=SH_DEGREE, device=DEVICE)
+    settings = make_settings(PipelineConfig(), EVAL["cap"])
+    cam, _ = scene.test_cameras[0].load()
+    expand, store = [], {"blend_forward": []}
+    with capture_ext(store), capture(binning, "expand_scan", expand):
+        img, _ = render_view(cam, loaded, settings,
+                             torch.zeros(3, device=DEVICE))
+    if not expand or not store["blend_forward"]:
+        raise AssertionError("eval: the in-process render called no "
+                             "expand_scan or no blend forward")
+    kernels = check_eval_kernels(expand[0][0], store["blend_forward"][0])
+    mine = os.path.join(root, "inprocess_test_00000.png")
+    save_png(mine, img.cpu().numpy())
+    test_dir = os.path.join(model, "test", f"ours_{it}")
+    with open(mine, "rb") as a, open(os.path.join(
+            test_dir, "renders", "00000.png"), "rb") as b:
+        if a.read() != b.read():
+            raise AssertionError("eval: the in-process render of test view "
+                                 "0 differs from the CLI's PNG")
+
+    npz = os.path.join(root, "lpips_vgg_random.npz")
+    np.savez(npz, **lp.random_params("vgg", seed=0))
+    t0 = time.time()
+    res = subprocess.run(
+        [sys.executable, "-m", "gsplat_tpu_torch.eval.metrics", "-m", model]
+        + device,
+        cwd=ROOT, capture_output=True, text=True, timeout=600,
+        env={**os.environ, "LPIPS_WEIGHTS_NPZ": npz})
+    metrics_s = time.time() - t0
+    with open(os.path.join(root, "metrics.log"), "w") as f:
+        f.write(res.stdout + res.stderr)
+    if res.returncode:
+        raise RuntimeError("eval metrics rc={}: {}".format(
+            res.returncode, (res.stdout + res.stderr)[-3000:]))
+    with open(os.path.join(model, "results.json")) as f:
+        got = json.load(f)[f"ours_{it}"]
+    names = sorted(os.listdir(os.path.join(test_dir, "renders")))
+    pairs = [[torch.as_tensor(metrics.read_image(os.path.join(
+        test_dir, d, name)), device=DEVICE) for d in ("renders", "gt")]
+        for name in names]
+    with torch.no_grad():
+        ssim = float(np.mean([float(losses.ssim(a, b)) for a, b in pairs]))
+        psnr_ = float(np.mean([float(losses.psnr(a, b)) for a, b in pairs]))
+    if (len(names) != n_test or abs(got["SSIM"] - ssim) > 1e-6
+            or abs(got["PSNR"] - psnr_) > 1e-6):
+        raise AssertionError(f"eval metrics {got} vs direct SSIM {ssim}, "
+                             f"PSNR {psnr_} over {names}")
+    weights = lp.random_params("vgg", seed=0)
+    card_l = float(lp.lpips_from_params(weights, *pairs[0]))
+    cpu_l = float(lp.lpips_from_params(weights, pairs[0][0].cpu(),
+                                       pairs[0][1].cpu()))
+    if not (math.isfinite(got["LPIPS"]) and math.isfinite(card_l)
+            and abs(card_l - cpu_l) <= 1e-5 * abs(cpu_l)):
+        raise AssertionError(f"eval LPIPS {got['LPIPS']}: card {card_l} vs "
+                             f"cpu {cpu_l}")
+    log("eval", card=card_name, setting=EVAL_NAME,
+        image=f"{EVAL['width']}x{EVAL['height']}", gaussians=state.n_alive,
+        views=n_views, test_views=n_test, k_dup=k_dup, num_dup=num_dup,
+        render_s_per_view=[float(f["render_s"]) for f in fields],
+        write_s_per_view=[float(f["write_s"]) for f in fields],
+        setup_s=setup_s, render_cli_s=render_s, metrics_cli_s=metrics_s,
+        launches=launches, png_identical_in_process=True, **kernels,
+        psnr=got["PSNR"], ssim=got["SSIM"], lpips=got["LPIPS"],
+        lpips_weights="random (NOT LPIPS weights), seed 0",
+        lpips_card_view0=card_l, lpips_cpu_view0=cpu_l,
+        lpips_rel_card_cpu=abs(card_l - cpu_l) / abs(cpu_l))
+    return launches
 
 
 # ---------------------------------------------------------------- swin ----
@@ -1994,6 +2371,9 @@ def main() -> int:
         train_launches[name], step_ms[name], *trained[name] = train_setting(
             name, st, wrappers, card_name)
     cli_phase(card_name)
+    # ---- the eval entry points (render, metrics) on the 1M setting's
+    # model; launch counts of the render process
+    eval_launches = eval_phase(trained["1m-1296x840"][0], card_name)
 
     # ---- the swin main paths, counts zeroed before each: training, the
     # window slide, the CLI and its playback
@@ -2006,7 +2386,8 @@ def main() -> int:
     for name in wrappers:
         kernels[name]["launches"] = sum(
             n.get(name, 0) for group in (launches, train_launches,
-                                         swin_launches)
+                                         swin_launches,
+                                         {EVAL_NAME: eval_launches})
             for n in group.values())
 
     # ---- device time by kernel, after every unprofiled timing
@@ -2016,6 +2397,7 @@ def main() -> int:
     for name, st in setups.items():
         profile_train(name, st, *trained[name], step_ms[name], card_name)
     profile_swin(swin_st, *swin_trained, swin_ms, card_name)
+    cummax_device_ms(kernels["multi_cummax"], card_name)
 
     log("done", card=card_name, seconds=time.time() - t_start)
     print(card_name)

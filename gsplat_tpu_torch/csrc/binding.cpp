@@ -35,13 +35,15 @@ int gsplat_blend_backward(const float* feat, long long k_slots,
                           const float* dpack, float* dfeat, int num_tiles,
                           int n_pix, int tile_x, int tile_y, int grid_x,
                           int chunk, cudaStream_t stream);
-int gsplat_cummax_blocks(long long k);
 long long gsplat_multi_cumsum_state_words(int n, long long k);
 int gsplat_multi_cumsum(const float* x, int n, long long k, void* state,
                         unsigned long long epoch, float* out,
                         cudaStream_t stream);
-int gsplat_multi_cummax(const int* x, int n, long long k, int* totals,
-                        int* out, cudaStream_t stream);
+long long gsplat_multi_cummax_state_words(int n, long long k);
+unsigned long long gsplat_multi_cummax_epoch_limit();
+int gsplat_multi_cummax(const int* x, int n, long long k, void* state,
+                        unsigned long long epoch, int* out,
+                        cudaStream_t stream);
 }
 
 namespace {
@@ -134,8 +136,6 @@ void blend_backward(torch::Tensor feat, torch::Tensor chunk_meta,
         "blend_backward");
 }
 
-int64_t cummax_blocks(int64_t k) { return gsplat_cummax_blocks(k); }
-
 int64_t multi_cumsum_state_words(int64_t n, int64_t k) {
   return gsplat_multi_cumsum_state_words(static_cast<int>(n), k);
 }
@@ -150,9 +150,19 @@ void multi_cumsum(torch::Tensor x, torch::Tensor state, int64_t epoch,
         "multi_cumsum");
 }
 
-void multi_cummax(torch::Tensor x, torch::Tensor totals, torch::Tensor out) {
+int64_t multi_cummax_state_words(int64_t n, int64_t k) {
+  return gsplat_multi_cummax_state_words(static_cast<int>(n), k);
+}
+
+int64_t multi_cummax_epoch_limit() {
+  return static_cast<int64_t>(gsplat_multi_cummax_epoch_limit());
+}
+
+void multi_cummax(torch::Tensor x, torch::Tensor state, int64_t epoch,
+                  torch::Tensor out) {
   check(gsplat_multi_cummax(x.data_ptr<int>(), static_cast<int>(x.size(0)),
-                            x.size(1), totals.data_ptr<int>(),
+                            x.size(1), state.data_ptr<int64_t>(),
+                            static_cast<unsigned long long>(epoch),
                             out.data_ptr<int>(), stream()),
         "multi_cummax");
 }
@@ -167,8 +177,9 @@ PYBIND11_MODULE(TORCH_EXTENSION_NAME, m) {
   m.def("render_forward", &render_forward);
   m.def("blend_forward", &blend_forward);
   m.def("blend_backward", &blend_backward);
-  m.def("cummax_blocks", &cummax_blocks);
   m.def("multi_cumsum_state_words", &multi_cumsum_state_words);
   m.def("multi_cumsum", &multi_cumsum);
+  m.def("multi_cummax_state_words", &multi_cummax_state_words);
+  m.def("multi_cummax_epoch_limit", &multi_cummax_epoch_limit);
   m.def("multi_cummax", &multi_cummax);
 }

@@ -96,15 +96,25 @@
 //   never expand_scan's.
 //
 // multi_cummax replaces scan_kernel.py::_kernel (wrapper multi_cummax): the
-// inclusive int32 cummax of n equal-length rows. The TPU kernel carried each
-// row's running max across a sequential grid in SMEM; here it is two
-// launches with INT_MIN as the identity (the TPU wrapper pads with
-// INT_MIN): launch 1 scans every (row, 4096-element block) and stores the
-// block's maximum, launch 2 has warp 0 of each block take the maximum of
-// the maxima before it, then scans its own block. Max is exact and associative, so the result is
-// bit-equal to a sequential scan whatever order the folds take. Bound:
-// bytes, 8 B per element; launch 2 reads the input a second time.
+// inclusive int32 cummax of n equal-length rows, INT_MIN the identity (the
+// TPU wrapper pads with it). The TPU kernel carried each row's running max
+// across a sequential grid in SMEM. Bound: bytes, 8 B an element (one int
+// read, one written). It is multi_cumsum's single pass with max in place
+// of the compensated sum: one launch, tiles of 512 threads x 32 elements
+// from the self-resetting ticket, each element read once with 16-byte
+// loads. What max changes:
 //
+// - A tile's state is one packed 64-bit word, epoch << 34 | flag << 32 |
+//   value, written with one relaxed 64-bit store and read with relaxed
+//   loads: the value travels with its flag, so there is no value-then-
+//   status handshake (release / acquire) and no second read. The epoch
+//   has 30 bits; the wrapper starts a zeroed buffer before it runs out.
+// - Max is exact and idempotent, so the look-back takes the maximum of
+//   everything it read up to the nearest prefix, in any order, and the
+//   result is the sequential scan's bit for bit: no tile order on one
+//   lane, no aggregates kept in shared memory, no window limit.
+// - Its state buffer is its own (keyed "multi_cummax" by the wrapper).
+
 // Plain C interface: pointers and the stream come from the binding; each
 // launcher returns cudaGetLastError() so a refused launch is reported.
 
@@ -112,9 +122,9 @@
 
 // MERGE_ITEMS (merged items a thread of merge_expand), CUMSUM_THREADS and
 // CUMSUM_ITEMS (a multi_cumsum tile is their product) and CUMSUM_LOOKBACK
-// (0: no carry at all, a wrong result that times the kernel's streaming
-// alone) exist so that scripts/torch_blend_variants.py can build the
-// ablations of this source.
+// and CUMMAX_LOOKBACK (0: no carry at all, a wrong result that times the
+// kernel's streaming alone) exist so that scripts/torch_blend_variants.py
+// can build the ablations of this source.
 #ifndef MERGE_ITEMS
 #define MERGE_ITEMS 4
 #endif
@@ -126,6 +136,9 @@
 #endif
 #ifndef CUMSUM_LOOKBACK
 #define CUMSUM_LOOKBACK 1
+#endif
+#ifndef CUMMAX_LOOKBACK
+#define CUMMAX_LOOKBACK 1
 #endif
 
 namespace {
@@ -701,6 +714,35 @@ multi_cumsum_kernel(const float* __restrict__ x, long long k, int row_tiles,
 // ---- multi_cummax
 
 constexpr int kIntMin = -2147483647 - 1;  // identity of max
+constexpr int kMaxThreads = 512;
+constexpr int kMaxWarps = kMaxThreads / 32;
+constexpr int kMaxItems = 32;            // elements a thread
+constexpr int kMaxRows = kMaxItems / 4;  // 16-byte loads a thread
+constexpr int kMaxTile = kMaxThreads * kMaxItems;
+constexpr int kMaxEpochBits = 30;        // epoch << 34 | flag << 32 | value
+
+// a tile's published state, one packed 64-bit word
+__device__ __forceinline__ unsigned long long max_status(
+    unsigned long long epoch, int flag, int v) {
+  return epoch << 34 | static_cast<unsigned long long>(flag) << 32 |
+         static_cast<unsigned>(v);
+}
+
+__device__ __forceinline__ unsigned long long load_relaxed(
+    const unsigned long long* p) {
+  unsigned long long v;
+  asm volatile("ld.relaxed.gpu.global.u64 %0, [%1];"
+               : "=l"(v)
+               : "l"(p)
+               : "memory");
+  return v;
+}
+
+__device__ __forceinline__ void store_relaxed(unsigned long long* p,
+                                              unsigned long long v) {
+  asm volatile("st.relaxed.gpu.global.u64 [%0], %1;" ::"l"(p), "l"(v)
+               : "memory");
+}
 
 __device__ __forceinline__ int warp_inclusive_max(int v, int lane) {
 #pragma unroll
@@ -711,86 +753,137 @@ __device__ __forceinline__ int warp_inclusive_max(int v, int lane) {
   return v;
 }
 
-// Scans block `blk` of row x (length k); returns the block's max (valid in
-// every thread) and leaves each element's warp-local inclusive max (over
-// the warp's 32 * kScanItems elements) in vals[].
-__device__ __forceinline__ int scan_block_max(const int* x, long long k,
-                                              long long blk,
-                                              int (&vals)[kScanItems],
-                                              int* warp_tot) {
-  const int lane = threadIdx.x & 31;
-  const int warp = threadIdx.x >> 5;
-  const long long warp_base =
-      blk * kScanTile + (long long)warp * 32 * kScanItems;
+// four ints from idx: one 16-byte load where they all exist and the
+// buffer is aligned, else scalar loads (INT_MIN past the end)
+__device__ __forceinline__ int4 load4_max(const int* __restrict__ p,
+                                          long long idx, long long k,
+                                          bool vec) {
+  if (vec && idx + 3 < k) return __ldg(reinterpret_cast<const int4*>(p + idx));
+  int4 v = make_int4(kIntMin, kIntMin, kIntMin, kIntMin);
+  if (idx < k) v.x = p[idx];
+  if (idx + 1 < k) v.y = p[idx + 1];
+  if (idx + 2 < k) v.z = p[idx + 2];
+  if (idx + 3 < k) v.w = p[idx + 3];
+  return v;
+}
+
+// The carry of tile ``tile`` (> row_first, its row's first tile): the
+// maximum of its row's tiles before it, by warp 0, the same in every lane.
+// Lane l of window w reads tile tile - 32 (w + 1) + l and waits until its
+// word carries this call's epoch; tiles before the row count as prefixes
+// of INT_MIN. The walk stops at the first window holding a prefix. Max is
+// exact, idempotent and commutative, so the maximum over every value the
+// walk read (aggregates before that prefix too) is the carry, whatever was
+// published when: no ordering of the fold and no compensation.
+__device__ int cummax_look_back(const unsigned long long* state,
+                                long long tile, long long row_first,
+                                unsigned long long epoch, int lane) {
   int run = kIntMin;
-#pragma unroll
-  for (int i = 0; i < kScanItems; ++i) {
-    const long long idx = warp_base + 32 * i + lane;
-    int v = idx < k ? x[idx] : kIntMin;
-    v = max(warp_inclusive_max(v, lane), run);
-    vals[i] = v;
-    run = __shfl_sync(kFull, v, 31);
+  for (long long pred = tile - 32 + lane;; pred -= 32) {
+    bool prefix = true;
+    if (pred >= row_first) {
+      unsigned long long st;
+      do {
+        st = load_relaxed(state + pred);
+      } while ((st >> 34) != epoch);
+      prefix = ((st >> 32) & 3u) == kFlagPrefix;
+      run = max(run, static_cast<int>(static_cast<unsigned>(st)));
+    }
+    if (__ballot_sync(kFull, prefix)) break;
   }
-  if (lane == 0) warp_tot[warp] = run;
-  __syncthreads();
-  int total = kIntMin;
-  for (int w = 0; w < kScanWarps; ++w) total = max(total, warp_tot[w]);
-  return total;
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1) {
+    run = max(run, __shfl_xor_sync(kFull, run, off));
+  }
+  return run;
 }
 
-__global__ void __launch_bounds__(kScanThreads)
-cummax_reduce_kernel(const int* __restrict__ x, long long k,
-                     int* __restrict__ totals) {
-  __shared__ int warp_tot[kScanWarps];
-  const long long row = blockIdx.y;
-  int vals[kScanItems];
-  const int total = scan_block_max(x + row * k, k, blockIdx.x, vals, warp_tot);
-  if (threadIdx.x == 0) totals[row * gridDim.x + blockIdx.x] = total;
-}
-
-__global__ void __launch_bounds__(kScanThreads)
-cummax_scan_kernel(const int* __restrict__ x, long long k,
-                   const int* __restrict__ totals, int* __restrict__ out) {
-  __shared__ int warp_tot[kScanWarps];
+__global__ void __launch_bounds__(kMaxThreads)
+multi_cummax_kernel(const int* __restrict__ x, long long k, int row_tiles,
+                    unsigned long long* __restrict__ ticket,
+                    unsigned long long* __restrict__ state, int tiles,
+                    unsigned long long epoch, int* __restrict__ out) {
+  __shared__ long long s_tile;
+  __shared__ int s_warp[kMaxWarps];
   __shared__ int s_carry;
   const int lane = threadIdx.x & 31;
   const int warp = threadIdx.x >> 5;
-  const long long row = blockIdx.y;
-  const long long blk = blockIdx.x;
-
-  // 1. Max of the block maxima of blocks [0, blk) of this row.
-  if (warp == 0) {
-    const int* tot = totals + row * gridDim.x;
-    int m = kIntMin;
-    for (long long j = lane; j < blk; j += 32) m = max(m, tot[j]);
-#pragma unroll
-    for (int off = 16; off > 0; off >>= 1)
-      m = max(m, __shfl_down_sync(kFull, m, off));
-    if (lane == 0) s_carry = m;
+  if (threadIdx.x == 0) {
+    const unsigned long long t = atomicAdd(ticket, 1ull);
+    if (t == static_cast<unsigned long long>(tiles - 1)) {
+      atomicExch(ticket, 0ull);
+    }
+    s_tile = static_cast<long long>(t);
   }
-
-  // 2. Scan this block; fold in the warps before, then the carry.
-  int vals[kScanItems];
-  scan_block_max(x + row * k, k, blk, vals, warp_tot);
-  int prefix = s_carry;  // written before scan_block_max's barrier
-  for (int w = 0; w < warp; ++w) prefix = max(prefix, warp_tot[w]);
+  __syncthreads();
+  const long long tile = s_tile;
+  const long long row = tile / row_tiles;
+  const long long blk = tile - row * row_tiles;
+  const int* xr = x + row * k;
+  int* orow = out + row * k;
+  const bool vec = ((reinterpret_cast<unsigned long long>(xr) |
+                     reinterpret_cast<unsigned long long>(orow)) &
+                    15u) == 0;
   const long long warp_base =
-      blk * kScanTile + (long long)warp * 32 * kScanItems;
-  int* o = out + row * k;
+      blk * kMaxTile + (long long)warp * 32 * kMaxItems;
+
+  // 1. Load and scan: lane l holds four consecutive elements of each
+  //    128-element row of the warp's, inclusive in vals[] without the
+  //    warps before its own.
+  int vals[kMaxItems];
+  int run = kIntMin;
 #pragma unroll
-  for (int i = 0; i < kScanItems; ++i) {
-    const long long idx = warp_base + 32 * i + lane;
-    if (idx < k) o[idx] = max(prefix, vals[i]);
+  for (int i = 0; i < kMaxRows; ++i) {
+    const long long idx = warp_base + (long long)i * kRowSlots + 4 * lane;
+    const int4 v = load4_max(xr, idx, k, vec);
+    const int x0 = v.x, x1 = max(x0, v.y), x2 = max(x1, v.z),
+              x3 = max(x2, v.w);
+    const int incl = warp_inclusive_max(x3, lane);
+    const int up = __shfl_up_sync(kFull, incl, 1);
+    const int excl = lane == 0 ? run : max(run, up);
+    vals[4 * i] = max(excl, x0);
+    vals[4 * i + 1] = max(excl, x1);
+    vals[4 * i + 2] = max(excl, x2);
+    vals[4 * i + 3] = max(excl, x3);
+    run = max(run, __shfl_sync(kFull, incl, 31));
+  }
+  if (lane == 0) s_warp[warp] = run;
+  __syncthreads();
+
+  // 2. The tile's carry: publish the tile's maximum, look back, publish
+  //    the inclusive prefix max(carry, maximum); each one 64-bit store.
+  if (warp == 0) {
+    int total = kIntMin;
+    for (int w = 0; w < kMaxWarps; ++w) total = max(total, s_warp[w]);
+    int carry = kIntMin;
+    if (CUMMAX_LOOKBACK && blk > 0) {
+      if (lane == 0) {
+        store_relaxed(state + tile, max_status(epoch, kFlagAggregate, total));
+      }
+      carry = cummax_look_back(state, tile, tile - blk, epoch, lane);
+    }
+    if (lane == 0) {
+      s_carry = carry;
+      store_relaxed(state + tile,
+                    max_status(epoch, kFlagPrefix, max(carry, total)));
+    }
+  }
+  __syncthreads();
+
+  // 3. Write: the carry and the warps before this one, then the element.
+  int prefix = s_carry;
+  for (int w = 0; w < warp; ++w) prefix = max(prefix, s_warp[w]);
+#pragma unroll
+  for (int i = 0; i < kMaxRows; ++i) {
+    const long long idx = warp_base + (long long)i * kRowSlots + 4 * lane;
+    store4(orow, idx, k, vec,
+           make_int4(max(prefix, vals[4 * i]), max(prefix, vals[4 * i + 1]),
+                     max(prefix, vals[4 * i + 2]),
+                     max(prefix, vals[4 * i + 3])));
   }
 }
 
 }  // namespace
-
-// int32 blocks of multi_cummax's scratch a row: one maximum a 4096-element
-// block
-extern "C" int gsplat_cummax_blocks(long long k) {
-  return (int)((k + kScanTile - 1) / kScanTile);
-}
 
 // int64 words of the look-back state multi_cumsum takes for n rows of k:
 // the ticket counter (padded to 32 bytes), then one SumState a tile. The
@@ -820,19 +913,36 @@ extern "C" int gsplat_multi_cumsum(const float* x, int n, long long k,
   return (int)cudaGetLastError();
 }
 
-// x, out: [n, k] row-major int32; totals: scratch of
-// n * gsplat_cummax_blocks(k) int32
+// int64 words of the look-back state multi_cummax takes for n rows of k:
+// the ticket counter (padded to 32 bytes), then one packed status word a
+// tile. The caller zero-fills it once and passes a larger epoch on every
+// later call that uses it, below gsplat_multi_cummax_epoch_limit().
+extern "C" long long gsplat_multi_cummax_state_words(int n, long long k) {
+  const long long tiles = (long long)n * ((k + kMaxTile - 1) / kMaxTile);
+  return 4 + tiles;
+}
+
+extern "C" unsigned long long gsplat_multi_cummax_epoch_limit() {
+  return 1ull << kMaxEpochBits;
+}
+
+// x, out: [n, k] row-major int32; state: gsplat_multi_cummax_state_words
+// int64, 1 <= epoch < gsplat_multi_cummax_epoch_limit() and larger than on
+// every earlier call with this buffer; calls sharing a buffer must not
+// overlap (one stream)
 extern "C" int gsplat_multi_cummax(const int* x, int n, long long k,
-                                   int* totals, int* out,
-                                   cudaStream_t stream) {
-  const int blocks = gsplat_cummax_blocks(k);
-  if (blocks == 0 || n == 0) return 0;
-  if (n > 65535) return (int)cudaErrorInvalidValue;
-  const dim3 grid(blocks, n);
-  cummax_reduce_kernel<<<grid, kScanThreads, 0, stream>>>(x, k, totals);
-  cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return (int)err;
-  cummax_scan_kernel<<<grid, kScanThreads, 0, stream>>>(x, k, totals, out);
+                                   void* state, unsigned long long epoch,
+                                   int* out, cudaStream_t stream) {
+  const long long row_tiles = (k + kMaxTile - 1) / kMaxTile;
+  const long long tiles = (long long)n * row_tiles;
+  if (tiles == 0) return 0;
+  if (tiles > 0x7fffffffLL || epoch == 0 ||
+      epoch >= (1ull << kMaxEpochBits)) {
+    return (int)cudaErrorInvalidValue;
+  }
+  auto* ticket = static_cast<unsigned long long*>(state);
+  multi_cummax_kernel<<<(unsigned)tiles, kMaxThreads, 0, stream>>>(
+      x, k, (int)row_tiles, ticket, ticket + 4, (int)tiles, epoch, out);
   return (int)cudaGetLastError();
 }
 

@@ -1,6 +1,8 @@
 """COLMAP sparse-reconstruction parsers (binary and text), a copy of
-gsplat_tpu/data/colmap.py without its native parser (gsplat_tpu/native):
-the port reads with the numpy paths below.
+gsplat_tpu/data/colmap.py. The binary images and points readers take the
+port's native parser first (gsplat_tpu_torch/native/gsio.cpp, a host
+accelerator built at first use) and the numpy paths below when it is not
+available; both give the same arrays.
 
 Capability parity with the reference's scene/colmap_loader.py (cameras,
 images, points3D in .bin/.txt form), implemented independently against the
@@ -91,6 +93,21 @@ def read_cameras_binary(path: str) -> dict[int, ColmapCamera]:
 
 
 def read_images_binary(path: str) -> dict[int, ColmapImage]:
+    # fast native path (gsplat_tpu_torch/native/gsio.cpp), numpy fallback
+    from gsplat_tpu_torch.native import gsio
+
+    with open(path, "rb") as fh:
+        buf = fh.read()
+    native = gsio.parse_images(buf)
+    if native is not None:
+        ids, qvec, tvec, cam_ids, names = native
+        return {int(i): ColmapImage(int(i), qvec[k].copy(), tvec[k].copy(),
+                                    int(cam_ids[k]), names[k])
+                for k, i in enumerate(ids)}
+    return read_images_binary_numpy(path)
+
+
+def read_images_binary_numpy(path: str) -> dict[int, ColmapImage]:
     imgs = {}
     with open(path, "rb") as f:
         (num,) = struct.unpack("<Q", f.read(8))
@@ -114,8 +131,19 @@ def read_images_binary(path: str) -> dict[int, ColmapImage]:
 
 def read_points3d_binary(path: str):
     """Returns (xyz [N,3] f64, rgb [N,3] u8, errors [N] f64)."""
+    from gsplat_tpu_torch.native import gsio
+
     with open(path, "rb") as f:
         data = f.read()
+    native = gsio.parse_points3d(data)
+    if native is not None:
+        return native
+    return parse_points3d_numpy(data)
+
+
+def parse_points3d_numpy(data: bytes):
+    """The numpy parse of a points3D.bin's bytes (read_points3d_binary's
+    fallback)."""
     (num,) = struct.unpack_from("<Q", data, 0)
     xyz = np.empty((num, 3), np.float64)
     rgb = np.empty((num, 3), np.uint8)

@@ -1,18 +1,20 @@
-"""Scene readers (port of gsplat_tpu/data/readers.py: the Blender and
-SwinGS readers).
+"""Scene readers (port of gsplat_tpu/data/readers.py).
 
+- ``read_colmap_scene`` (readColmapSceneInfo, dataset_readers.py:142-203):
+  sparse/0 in binary or text form, SIMPLE_PINHOLE and PINHOLE cameras,
+  every llffhold-th image held out, sfm init (points3D.bin/.txt cached as
+  points3D.ply) or random init;
 - ``read_blender_scene`` (readNerfSyntheticInfo, dataset_readers.py:
   247-281): transforms_{train,test}.json, OpenGL -> COLMAP axis flip,
   alpha over the background baked in, 100k random points in [-1.3, 1.3]^3
   when no points3d.ply exists;
+- ``read_google_immersive_scene`` (readGoogleImmersiveInfo, :325-373):
+  cam.json + undistorted/, principal-point offsets;
 - ``read_dynamic_scene`` (readDynamicSceneInfo, :427-525): the SwinGS
   layout images_per_frame/<t>/ + cam.json, per-frame train/test lists,
   frames rebased to 0..span-1, sfm (sfm.bin) or random init;
 - ``nerfpp_norm`` (getNerfppNorm, :55-76), ``_random_init`` (:178-188) and
   ``detect_scene_type`` (scene/__init__.py:44-54).
-
-The COLMAP and Google Immersive readers come with later slices of the
-port; asking for them raises NotImplementedError.
 """
 
 from __future__ import annotations
@@ -70,6 +72,69 @@ def _random_init(num_pts: int, radius: float, ply_path: str, seed=None):
     colors = sh_lib.sh_to_rgb_dc(shs)
     ply.store_point_cloud(ply_path, xyz.astype(np.float32), colors * 255)
     return xyz.astype(np.float32), colors.astype(np.float32)
+
+
+def read_colmap_scene(path: str, images: str = "images", eval_split=True,
+                      llffhold: int = 8, init_type: str = "sfm",
+                      num_pts: int = 100_000) -> SceneInfo:
+    sparse = os.path.join(path, "sparse", "0")
+    try:
+        cams = colmap.read_cameras_binary(os.path.join(sparse, "cameras.bin"))
+        imgs = colmap.read_images_binary(os.path.join(sparse, "images.bin"))
+    except FileNotFoundError:
+        cams = colmap.read_cameras_text(os.path.join(sparse, "cameras.txt"))
+        imgs = colmap.read_images_text(os.path.join(sparse, "images.txt"))
+
+    infos = []
+    for im in imgs.values():
+        intr = cams[im.camera_id]
+        if intr.model == "SIMPLE_PINHOLE":
+            focal_x = focal_y = intr.params[0]
+        elif intr.model == "PINHOLE":
+            focal_x, focal_y = intr.params[0], intr.params[1]
+        else:
+            raise ValueError(
+                f"COLMAP camera model {intr.model} not supported: undistort "
+                "the dataset first (PINHOLE / SIMPLE_PINHOLE only)")
+        infos.append(CameraInfo(
+            uid=intr.id,
+            R=colmap.qvec2rotmat(im.qvec).T,
+            T=np.asarray(im.tvec),
+            fovx=focal2fov(focal_x, intr.width),
+            fovy=focal2fov(focal_y, intr.height),
+            image_path=os.path.join(path, images, os.path.basename(im.name)),
+            image_name=os.path.splitext(os.path.basename(im.name))[0],
+            width=intr.width, height=intr.height))
+    infos.sort(key=lambda c: c.image_name)
+    train, test = _llff_split(infos, eval_split, llffhold)
+    translate, radius = nerfpp_norm(train)
+
+    if init_type == "sfm":
+        ply_path = os.path.join(sparse, "points3D.ply")
+        if not os.path.exists(ply_path):
+            try:
+                xyz, rgb, _ = colmap.read_points3d_binary(
+                    os.path.join(sparse, "points3D.bin"))
+            except FileNotFoundError:
+                xyz, rgb, _ = colmap.read_points3d_text(
+                    os.path.join(sparse, "points3D.txt"))
+            ply.store_point_cloud(ply_path, xyz.astype(np.float32),
+                                  rgb.astype(np.float32))
+        points, colors, _ = ply.fetch_point_cloud(ply_path)
+    elif init_type == "random":
+        ply_path = os.path.join(path, "random.ply")
+        points, colors = _random_init(num_pts, radius, ply_path)
+    else:
+        raise ValueError("init_type must be 'sfm' or 'random'")
+    return SceneInfo(points, colors, train, test, translate, radius, ply_path)
+
+
+def _llff_split(infos: List[CameraInfo], eval_split: bool, llffhold: int):
+    """(train, test): every llffhold-th camera held out, or all train."""
+    if not eval_split:
+        return infos, []
+    return ([c for i, c in enumerate(infos) if i % llffhold != 0],
+            [c for i, c in enumerate(infos) if i % llffhold == 0])
 
 
 def _read_transforms(path: str, transforms_file: str, white_background: bool,
@@ -144,6 +209,34 @@ def _parse_cam_json(cams_para: dict) -> List[CameraInfo]:
     return infos
 
 
+def _sfm_init(path: str):
+    """sfm.bin of a cam.json layout, written as sfm.ply and read back."""
+    ply_path = os.path.join(path, "sfm.ply")
+    xyz, rgb, _ = colmap.read_points3d_binary(os.path.join(path, "sfm.bin"))
+    ply.store_point_cloud(ply_path, xyz.astype(np.float32),
+                          rgb.astype(np.float32))
+    points, colors, _ = ply.fetch_point_cloud(ply_path)
+    return points, colors, ply_path
+
+
+def read_google_immersive_scene(path: str, eval_split=True, llffhold: int = 8,
+                                init_type: str = "random",
+                                num_pts: int = 100_000) -> SceneInfo:
+    with open(os.path.join(path, "cam.json")) as f:
+        cams_para = json.load(f)
+    infos = _parse_cam_json(cams_para)
+    for c in infos:
+        c.image_path = os.path.join(path, "undistorted", c.image_name)
+    train, test = _llff_split(infos, eval_split, llffhold)
+    translate, radius = nerfpp_norm(train)
+    if init_type == "sfm":
+        points, colors, ply_path = _sfm_init(path)
+    else:
+        ply_path = os.path.join(path, "random.ply")
+        points, colors = _random_init(num_pts, radius, ply_path)
+    return SceneInfo(points, colors, train, test, translate, radius, ply_path)
+
+
 def read_dynamic_scene(path: str, eval_split=True, llffhold: int = 8,
                        init_type: str = "random", num_pts: int = 100_000,
                        max_frame: int = 100, min_frame: int = 0,
@@ -192,12 +285,7 @@ def read_dynamic_scene(path: str, eval_split=True, llffhold: int = 8,
 
     translate, radius = nerfpp_norm(train_at[0])
     if init_type == "sfm":
-        ply_path = os.path.join(path, "sfm.ply")
-        xyz, rgb, _ = colmap.read_points3d_binary(os.path.join(path,
-                                                               "sfm.bin"))
-        ply.store_point_cloud(ply_path, xyz.astype(np.float32),
-                              rgb.astype(np.float32))
-        points, colors, _ = ply.fetch_point_cloud(ply_path)
+        points, colors, ply_path = _sfm_init(path)
     elif init_type == "random":
         ply_path = os.path.join(path, "random.ply")
         points, colors = _random_init(num_pts, radius, ply_path)
@@ -207,18 +295,10 @@ def read_dynamic_scene(path: str, eval_split=True, llffhold: int = 8,
                             radius, ply_path)
 
 
-def _later_slice(kind: str) -> Callable:
-    def reader(*args, **kwargs):
-        raise NotImplementedError(
-            f"gsplat_tpu_torch reads Blender and SwinGS scenes only; the "
-            f"{kind} reader comes with a later slice of the port")
-    return reader
-
-
 SCENE_LOAD_CALLBACKS: Dict[str, Callable] = {
-    "Colmap": _later_slice("COLMAP"),
+    "Colmap": read_colmap_scene,
     "Blender": read_blender_scene,
-    "Google": _later_slice("Google Immersive"),
+    "Google": read_google_immersive_scene,
     "SwinGS": read_dynamic_scene,
 }
 

@@ -29,8 +29,10 @@ it. The source notes in the .cu file give each kernel's bound and design.
   ``expand_scan``'s, with a state buffer of its own; it folds the carry in
   block order, so two launches on the same input give the same bits.
 - ``multi_cummax`` replaces ``scan_kernel._kernel``: the inclusive int32
-  cummax of each row of an [n, K] array. No module calls it (the JAX
-  package's neither); it is held on the card by itself.
+  cummax of each row of an [n, K] array. The kernel is ``multi_cumsum``'s
+  single pass with max, one packed status word a tile, and a state buffer
+  of its own. No module calls it (the JAX package's neither); it is held
+  on the card by itself.
 """
 
 from __future__ import annotations
@@ -69,17 +71,19 @@ def expand_scan_plain(marks: torch.Tensor, base_in: torch.Tensor):
 _LOOKBACK: dict = {}
 
 
-def _lookback_state(kernel: str, device: torch.device, words: int):
+def _lookback_state(kernel: str, device: torch.device, words: int,
+                    epoch_limit: int = 1 << 62):
     """The look-back state buffer of ``kernel`` on ``device``'s current
-    stream, at least ``words`` int64 long, and the epoch for the next call.
-    A new or larger buffer is zero-filled (its epochs start again at 1);
-    calls of one kernel on one stream never overlap, so they can share it.
-    Each kernel has its own buffer: the two lay their tiles' states out
-    differently."""
+    stream, at least ``words`` int64 long, and the epoch for the next call,
+    below ``epoch_limit``. A new or larger buffer, or one whose epochs ran
+    out, is zero-filled (its epochs start again at 1); calls of one kernel
+    on one stream never overlap, so they can share it. Each kernel has its
+    own buffer: they lay their tiles' states out differently."""
     key = (kernel, device.index,
            torch.cuda.current_stream(device).cuda_stream)
     entry = _LOOKBACK.get(key)
-    if entry is None or entry[0].numel() < words:
+    if (entry is None or entry[0].numel() < words
+            or entry[1] + 1 >= epoch_limit):
         entry = _LOOKBACK[key] = [torch.zeros(words, dtype=torch.int64,
                                               device=device), 0]
     entry[1] += 1
@@ -198,9 +202,10 @@ def multi_cummax(x: torch.Tensor) -> torch.Tensor:
     if x.numel():
         ext = cuda_ext.load()
         n, k = x.shape
-        totals = torch.empty(n * ext.cummax_blocks(k), dtype=torch.int32,
-                             device=x.device)
-        ext.multi_cummax(x, totals, out)
+        state, epoch = _lookback_state(
+            "multi_cummax", x.device, ext.multi_cummax_state_words(n, k),
+            ext.multi_cummax_epoch_limit())
+        ext.multi_cummax(x, state, epoch, out)
         multi_cummax.launches += 1
     return out
 

@@ -3,8 +3,7 @@
 ``render`` draws a GaussianState, ``deformable_render`` a SwinState at a
 frame, through the rasterizer with the settings the caller passes (the
 inference path, or the training path when ``settings.inference`` is
-False); both return the same bundle as their JAX counterparts. The
-reference's python-side SH / covariance switches are not ported yet.
+False); both return the same bundle as their JAX counterparts.
 """
 
 from __future__ import annotations
@@ -16,14 +15,34 @@ from gsplat_tpu_torch.raster.rasterize import RasterizeSettings, rasterize
 
 def render(camera: CameraParams, state: GaussianState, bg,
            settings: RasterizeSettings, sh_degree: int | None = None,
-           scale_modifier: float = 1.0):
+           scale_modifier: float = 1.0, convert_shs_python: bool = False,
+           compute_cov3d_python: bool = False):
     """Render ``state`` from ``camera``; ``sh_degree`` defaults to the
-    model's max."""
+    model's max.
+
+    ``convert_shs_python`` / ``compute_cov3d_python`` are the reference's
+    pipe.convert_SHs_python / pipe.compute_cov3D_python switches
+    (gaussian_renderer/__init__.py:63-83): the SH -> RGB conversion and/or
+    the scale + quaternion -> 3D covariance build run outside the
+    rasterizer and feed its ``colors_precomp`` / ``cov3d_precomp`` inputs.
+    The same math as the fused path, so the image is the same."""
     deg = state.max_sh_degree if sh_degree is None else sh_degree
+    colors_precomp = None
+    cov3d_precomp = None
+    if convert_shs_python:
+        from gsplat_tpu_torch.core.sh import sh_to_rgb
+
+        colors_precomp = sh_to_rgb(deg, state.get_features(), state.xyz,
+                                   camera.cam_pos)
+    if compute_cov3d_python:
+        cov3d_precomp = state.get_covariance(scale_modifier)
     out = rasterize(
         state.xyz, state.get_scaling(), state.get_rotation(),
-        state.get_opacity()[:, 0], state.get_features(), camera, deg, bg,
-        settings, scale_modifier=scale_modifier, alive=state.alive_mask)
+        state.get_opacity()[:, 0],
+        None if convert_shs_python else state.get_features(), camera, deg,
+        bg, settings, colors_precomp=colors_precomp,
+        cov3d_precomp=cov3d_precomp, scale_modifier=scale_modifier,
+        alive=state.alive_mask)
     return {
         "render": out.image,
         "viewspace_points": None,

@@ -24,15 +24,18 @@ JSON line a measurement.
 
 With ``--scan`` it also builds ``csrc/scan_kernels.cu`` (as ``current``)
 and each given scan source (an earlier revision's two-launch multi_cumsum
-is called through its own signature), records the serving merge frame's
-``merge_expand`` inputs too (chip_smoke.probe_serving, camera 0), and
-holds each build's ``merge_expand`` (bit-equal to plain, two launches
-bit-equal) and ``multi_cumsum`` (within 2e-3 + 1e-5 |x| of a float64
-cumsum, two launches bit-equal) on those inputs and on the training
-steps' (merge_expand in all three settings, multi_cumsum at 1M and swin),
-then times them in turns the same way, with each kernel's device time
-(torch.profiler) beside the CUDA-event time of a call, and builds the
-ablations of the checkout's source listed in SCAN_ABLATIONS.
+or multi_cummax is called through its own signature), records the
+serving merge frame's ``merge_expand`` inputs too (chip_smoke.probe_serving,
+camera 0), and holds each build's ``merge_expand`` (bit-equal to plain,
+two launches bit-equal), ``multi_cumsum`` (within 2e-3 + 1e-5 |x| of a
+float64 cumsum, two launches bit-equal) and ``multi_cummax`` (bit-equal to
+torch.cummax, two launches bit-equal) on those inputs and on the training
+steps' (merge_expand in all three settings, multi_cumsum at 1M and swin;
+multi_cummax on chip_smoke's 3 x 8M input, on no path), then times them
+in turns the same way, with each kernel's device time (torch.profiler)
+beside the CUDA-event time of a call, and builds the ablations of the
+checkout's source listed in SCAN_ABLATIONS. ``--cummax_only`` skips the
+blends and the training setup and times multi_cummax alone.
 """
 
 from __future__ import annotations
@@ -120,53 +123,39 @@ def ptxas_report(text, label):
 
 # ablations of the checkout's scan_kernels.cu: merge_expand with 8 items a
 # thread (the source: 4); multi_cumsum tiles of 4,096 and 8,192 elements
-# (the source: 16,384, 512 threads x 32), and no look-back (a wrong
-# result, not checked: the kernel's streaming alone)
+# (the source: 16,384, 512 threads x 32); multi_cumsum and multi_cummax
+# with no look-back (a wrong result, not checked: the kernel's streaming
+# alone)
 SCAN_ABLATIONS = {"merge_items8": ["-DMERGE_ITEMS=8"],
                   "cumsum_tile4096": ["-DCUMSUM_THREADS=256",
                                       "-DCUMSUM_ITEMS=16"],
                   "cumsum_tile8192": ["-DCUMSUM_THREADS=256"],
-                  "cumsum_no_lookback": ["-DCUMSUM_LOOKBACK=0"]}
-SCAN_UNCHECKED = {("multi_cumsum", "cumsum_no_lookback")}
+                  "cumsum_no_lookback": ["-DCUMSUM_LOOKBACK=0"],
+                  "cummax_no_lookback": ["-DCUMMAX_LOOKBACK=0"]}
+SCAN_UNCHECKED = {("multi_cumsum", "cumsum_no_lookback"),
+                  ("multi_cummax", "cummax_no_lookback")}
 # kernel entry functions a scan's device time sums (either revision)
 SCAN_KERNELS = {"merge_expand": ("merge_expand_kernel",),
                 "multi_cumsum": ("multi_cumsum_kernel", "cumsum_reduce_kernel",
-                                 "cumsum_scan_kernel")}
-
-
-def device_ms(fn, reps, names):
-    """Mean device milliseconds a call of ``fn`` spends in kernels whose
-    name holds one of ``names`` (torch.profiler's CUDA activity): the
-    kernels alone, without the host time of the call, which bounds event
-    times of a few microseconds."""
-    import torch
-    from torch.profiler import ProfilerActivity, profile
-
-    fn()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
-    total = sum(e.self_device_time_total for e in prof.key_averages()
-                if any(n in e.key for n in names))
-    return total / 1e3 / reps
+                                 "cumsum_scan_kernel"),
+                "multi_cummax": ("multi_cummax_kernel", "cummax_reduce_kernel",
+                                 "cummax_scan_kernel")}
 
 
 def scan_label(entry):
     """The report's name of a scan kernel entry function, or None."""
-    for name in ("merge_expand_kernel", "multi_cumsum_kernel",
-                 "cumsum_reduce_kernel", "cumsum_scan_kernel"):
-        if name in entry:
-            return name
+    for names in SCAN_KERNELS.values():
+        for name in names:
+            if name in entry:
+                return name
     return None
 
 
 class Scan:
-    """One build's merge_expand and multi_cumsum, with the wrappers'
-    signatures, on PyTorch's current stream: multi_cumsum single-pass (a
-    look-back state buffer and an epoch a call) or the two launches of
-    earlier revisions (a scratch of block totals)."""
+    """One build's merge_expand, multi_cumsum and multi_cummax, with the
+    wrappers' signatures, on PyTorch's current stream: the two cumulative
+    scans single-pass (a look-back state buffer and an epoch a call) or
+    the two launches of earlier revisions (a scratch of block totals)."""
 
     def __init__(self, so):
         P, LL, I = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
@@ -185,6 +174,18 @@ class Scan:
             self.blocks = lib.gsplat_cumsum_blocks
             self.blocks.argtypes, self.blocks.restype = [LL], I
             self.cumsum.argtypes = [P, I, LL, P, P, P]
+        self.cummax = lib.gsplat_multi_cummax
+        self.cummax.restype = I
+        self.max_single = hasattr(lib, "gsplat_multi_cummax_state_words")
+        if self.max_single:
+            self.max_words = lib.gsplat_multi_cummax_state_words
+            self.max_words.argtypes, self.max_words.restype = [I, LL], LL
+            self.cummax.argtypes = [P, I, LL, P, ctypes.c_ulonglong, P, P]
+            self.max_state, self.max_epoch = None, 0
+        else:
+            self.max_blocks = lib.gsplat_cummax_blocks
+            self.max_blocks.argtypes, self.max_blocks.restype = [LL], I
+            self.cummax.argtypes = [P, I, LL, P, P, P]
 
     @staticmethod
     def _stream():
@@ -227,20 +228,45 @@ class Scan:
             raise RuntimeError(f"multi_cumsum launch failed: {err}")
         return out
 
+    def multi_cummax(self, x):
+        import torch
+
+        n, k = x.shape
+        out = torch.empty_like(x)
+        if self.max_single:
+            words = self.max_words(n, k)
+            if self.max_state is None or self.max_state.numel() < words:
+                self.max_state = torch.zeros(words, dtype=torch.int64,
+                                             device=x.device)
+                self.max_epoch = 0
+            self.max_epoch += 1
+            err = self.cummax(x.data_ptr(), n, k, self.max_state.data_ptr(),
+                              self.max_epoch, out.data_ptr(), self._stream())
+        else:
+            totals = torch.empty(n * self.max_blocks(k), dtype=torch.int32,
+                                 device=x.device)
+            err = self.cummax(x.data_ptr(), n, k, totals.data_ptr(),
+                              out.data_ptr(), self._stream())
+        if err:
+            raise RuntimeError(f"multi_cummax launch failed: {err}")
+        return out
+
 
 def check_scan(kernel, fn, args, want):
     """One build's scan against the plain or float64 result ``want``:
-    merge_expand bit-equal, multi_cumsum within 2e-3 + 1e-5 |x|; two
-    launches bit-equal. Returns the max abs error."""
+    merge_expand and multi_cummax bit-equal, multi_cumsum within 2e-3 +
+    1e-5 |x|; two launches bit-equal. Returns the max abs error."""
     import torch
 
     got, again = fn(*args), fn(*args)
     torch.cuda.synchronize()
-    if kernel == "merge_expand":
+    if kernel != "multi_cumsum":
+        if kernel == "multi_cummax":
+            got, again, want = (got,), (again,), (want,)
         if not all(torch.equal(g, w) for g, w in zip(got, want)):
-            raise AssertionError("merge_expand differs from plain")
+            raise AssertionError(f"{kernel} differs from plain")
         if not all(torch.equal(g, a) for g, a in zip(got, again)):
-            raise AssertionError("two merge_expand launches differ")
+            raise AssertionError(f"two {kernel} launches differ")
         return 0.0
     err = (got.double() - want).abs()
     if bool((err > 2e-3 + 1e-5 * want.abs()).any()):
@@ -252,10 +278,14 @@ def check_scan(kernel, fn, args, want):
 
 def scan_inputs(card_name, caps):
     """{(kernel, setting): args} of merge_expand and multi_cumsum from the
-    training steps' records and the serving merge frame's (camera 0)."""
+    training steps' records and the serving merge frame's (camera 0), and
+    multi_cummax's input (chip_smoke.cummax_input: on no path); only the
+    last without ``caps``."""
     import chip_smoke as cs
 
-    out = {}
+    out = {("multi_cummax", "3x8M"): (cs.cummax_input(),)}
+    if caps is None:
+        return out
     for name, cap in caps.items():
         out[("merge_expand", name)] = cap["merge_expand"]
         if "multi_cumsum" in cap:
@@ -283,6 +313,10 @@ def time_scans(card_name, scans, inputs, reps):
             want = scan_kernel.merge_expand_plain(*args)
             yard = cs.searchsorted_ms(args[0], args[2])
             shape = f"P={args[0].shape[0]} K={args[2]}"
+        elif kernel == "multi_cummax":
+            want = scan_kernel.multi_cummax_plain(args[0])
+            yard = cs.cuda_ms(lambda: torch.cummax(args[0], dim=1), reps)
+            shape = f"n={args[0].shape[0]} K={args[0].shape[1]}"
         else:
             want = torch.cumsum(args[0].double(), dim=1)
             yard = cs.cuda_ms(lambda: torch.cumsum(args[0], dim=1), reps)
@@ -303,8 +337,8 @@ def time_scans(card_name, scans, inputs, reps):
         args = inputs[(line["kernel"], line["setting"])]
         fn = getattr(scans[line["variant"]], line["kernel"])
         cs.log("time", card=card_name, **line,
-               device_ms=device_ms(lambda: fn(*args), reps,
-                                   SCAN_KERNELS[line["kernel"]]))
+               device_ms=cs.device_ms(lambda: fn(*args), reps,
+                                      SCAN_KERNELS[line["kernel"]]))
 
 
 class Blend:
@@ -372,6 +406,10 @@ def main():
     ap.add_argument("--scan", action="append", default=[],
                     metavar="NAME=PATH", help="time the scan kernels too: "
                     "another scan source to build beside the checkout's")
+    ap.add_argument("--cummax_only", action="store_true",
+                    help="with --scan: build and time the scan sources on "
+                    "multi_cummax's input alone (no blends, no training "
+                    "setup)")
     ap.add_argument("--reps", type=int, default=20)
     args = ap.parse_args()
     import torch
@@ -383,7 +421,7 @@ def main():
     from gsplat_tpu_torch.raster import tile_kernel
 
     card_name = cs.card()
-    sources = {"current": SOURCE}
+    sources = {} if args.cummax_only else {"current": SOURCE}
     sources.update(spec.split("=", 1) for spec in args.source)
     scan_sources, scan_defines = {}, {}
     if args.scan:
@@ -393,7 +431,7 @@ def main():
         scan_sources.update(spec.split("=", 1) for spec in args.scan)
         scan_defines = {f"scan_{n}": d for n, d in SCAN_ABLATIONS.items()}
     t0 = time.time()
-    built = build_all(sources)
+    built = build_all(sources) if sources else {}
     for name, (_, report) in built.items():
         cs.log("ptxas", card=card_name, variant=name, **report)
     built_scans = {}
@@ -407,7 +445,7 @@ def main():
     blends = {name: Blend(so) for name, (so, _) in built.items()}
     order = list(blends) + list(blends)[::-1]
     # a training step: not in no_grad
-    inputs, caps = capture_inputs(card_name)
+    inputs, caps = capture_inputs(card_name) if blends else ({}, None)
     scan_in = scan_inputs(card_name, caps) if built_scans else {}
     with torch.no_grad():
         for setting, (feat, meta, dpack, kw) in inputs.items():

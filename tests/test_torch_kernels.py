@@ -1139,9 +1139,9 @@ def test_multi_cumsum_cuda_launches_are_bit_equal(cuda):
 
 @pytest.mark.gpu
 def test_expand_scan_and_multi_cumsum_keep_separate_state(cuda):
-    """expand_scan and multi_cumsum called in turns on one stream, each
-    against its plain version: neither reads the other's look-back state
-    (each kernel has its own buffer and epochs)."""
+    """expand_scan, multi_cumsum and multi_cummax called in turns on one
+    stream, each against its plain version: none reads another's
+    look-back state (each kernel has its own buffer and epochs)."""
     marks, base_in = expand_kind_case("dense", 41 * 4096 + 5, seed=2)
     m, b = torch.from_numpy(marks), torch.from_numpy(base_in)
     want_e = tscan.expand_scan_plain(m, b)
@@ -1149,7 +1149,9 @@ def test_expand_scan_and_multi_cumsum_keep_separate_state(cuda):
     x = torch.from_numpy(rng.normal(size=(9, 37 * 4096 + 11)).astype(
         np.float32))
     want_c = torch.cumsum(x.double(), dim=1)
-    mc, bc, xc = m.to(cuda), b.to(cuda), x.to(cuda)
+    y = torch.from_numpy(cummax_case(3, 29 * 16384 + 5, seed=8))
+    want_m = tscan.multi_cummax_plain(y)
+    mc, bc, xc, yc = m.to(cuda), b.to(cuda), x.to(cuda), y.to(cuda)
     first = None
     for _ in range(3):
         got_e = tscan.expand_scan(mc, bc)
@@ -1161,8 +1163,11 @@ def test_expand_scan_and_multi_cumsum_keep_separate_state(cuda):
         assert bool((err <= 2e-3 + 1e-5 * want_c.abs()).all())
         first = got_c if first is None else first
         assert torch.equal(got_c, first)
+        got_m = tscan.multi_cummax(yc)
+        torch.cuda.synchronize()
+        assert torch.equal(got_m.cpu(), want_m)
     keys = {key[0] for key in tscan._LOOKBACK}
-    assert {"expand_scan", "multi_cumsum"} <= keys
+    assert {"expand_scan", "multi_cumsum", "multi_cummax"} <= keys
 
 
 @pytest.mark.gpu
@@ -1199,7 +1204,9 @@ def test_training_rasterize_cuda_matches_cpu_port(cuda):
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("n,k", [(3, 77), (1, 4096), (3, 3 * 4096 + 511),
-                                 (2, (1 << 20) + 3), (1, 0)])
+                                 (2, (1 << 20) + 3), (1, 0), (1, 1),
+                                 (3, 16383), (3, 16384), (3, 16385),
+                                 (3, 8_000_000)])
 def test_multi_cummax_cuda_matches_plain(cuda, n, k):
     x = torch.from_numpy(cummax_case(n, k, seed=k))
     want = tscan.multi_cummax_plain(x)
@@ -1208,3 +1215,36 @@ def test_multi_cummax_cuda_matches_plain(cuda, n, k):
     torch.cuda.synchronize()
     assert tscan.multi_cummax.launches == before + (1 if k else 0)
     assert torch.equal(got.cpu(), want)
+
+
+@pytest.mark.gpu
+def test_multi_cummax_cuda_launches_are_bit_equal(cuda):
+    """Five launches on one input, each one launch, all equal to
+    torch.cummax, on 3 rows of 2^22 + 3 (257 tiles a row, rows not
+    16-byte aligned)."""
+    x = torch.from_numpy(cummax_case(3, (1 << 22) + 3, seed=5))
+    want = tscan.multi_cummax_plain(x)
+    xc = x.to(cuda)
+    before = tscan.multi_cummax.launches
+    outs = [tscan.multi_cummax(xc) for _ in range(5)]
+    torch.cuda.synchronize()
+    assert tscan.multi_cummax.launches == before + 5
+    for o in outs:
+        assert torch.equal(o.cpu(), want)
+
+
+@pytest.mark.gpu
+def test_multi_cummax_cuda_restarts_when_epochs_run_out(cuda):
+    """The packed status word holds a 30-bit epoch: a buffer whose epochs
+    ran out is zero-filled and its epochs start again at 1, and the
+    results stay equal to torch.cummax across the restart."""
+    x = torch.from_numpy(cummax_case(2, 5 * 16384 + 9, seed=9))
+    want = tscan.multi_cummax_plain(x)
+    xc = x.to(cuda)
+    assert torch.equal(tscan.multi_cummax(xc).cpu(), want)
+    key = next(key for key in tscan._LOOKBACK if key[0] == "multi_cummax")
+    limit = cuda_ext.load().multi_cummax_epoch_limit()
+    tscan._LOOKBACK[key][1] = limit - 2
+    assert torch.equal(tscan.multi_cummax(xc).cpu(), want)  # epoch limit-1
+    assert torch.equal(tscan.multi_cummax(xc).cpu(), want)  # restarted
+    assert tscan._LOOKBACK[key][1] == 1
