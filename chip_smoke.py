@@ -1,6 +1,8 @@
 #!/usr/bin/env python3
 """On-card smoke test of gsplat_tpu_torch (one NVIDIA GPU): the serving
-path, the static training path and SwinGS training and playback.
+path, the static training path, checkpoints, RNG replay and profiling,
+SwinGS training, ARAP and playback, the eval entry points and the
+multi-rank modes (ranks sharing the card over gloo).
 
 Run from the root of a checkout:  python3 chip_smoke.py
 
@@ -105,6 +107,34 @@ the result line is printed:
   swin_slide   decay_genesis -> tick -> evolve (ring + stream_dump +
                rollover) -> densify -> one window of steps in the new
                window; matured rows active and rendered, records = matured
+  resume       bench.py's 100k setting driven as --replay_rng drives the
+               trainer (a schedule written here: cameras, noise, three
+               relocations), 20 steps with a checkpoint at 10, the
+               checkpoint loaded and the run resumed: the checkpoint
+               round-trips bit-equal, resumed losses within rel 1e-5;
+               counts zeroed before it
+  replay       python -m gsplat_tpu_torch.train.train_static --replay_rng
+               on the committed Blender fixture, on the card (launch
+               counts of that process) and on the port's CPU path:
+               per-iteration loss rel <= 4.1e-4
+  profile_cli  that card run's --profile_iterations trace names the blend
+               forward, blend backward and owner-expansion kernels once
+               an iteration
+  arap         one fused swin step with ARAP at the swin setting, counts
+               zeroed before it; arap_loss and its gradient on the card
+               vs the CPU (1e-5 / 1e-4); knn_indices' time over the
+               200k immature rows and the 400k union rows
+  parallel     (after the profiles, in processes of their own) four gloo
+               ranks sharing the card: dp, pshard and dp x ps (2 x 2) at
+               train-1m, swin-dp at the swin setting, a tileshard render
+               of the eval model at 1237x822 (two bands), each held
+               against the single-device path on the card (dp / swin-dp
+               loss rel 1e-5 and params 2e-4, bit-equal across ranks;
+               pshard and dp x ps loss rel 5e-3; tileshard 2e-5), launch
+               counts per rank and step, and on rank 0 every kernel of
+               the mode against its plain version on that mode's inputs
+               (the kernel phase's gates); step times are of ranks
+               sharing one card, not a scaling figure
   swin_cli     train_swin.main on the dynamic fixture (the flags of
                tests/test_stream_semantic.py), stream playback vs the
                direct render (>= 24 dB) and vs GT (>= 15 dB), then
@@ -125,6 +155,7 @@ result when torch.cuda.is_available() is false.
 from __future__ import annotations
 
 import contextlib
+import gc
 import json
 import math
 import os
@@ -2227,6 +2258,859 @@ def profile_swin(st, state, adam, gen, step_ms, card_name):
     profile_steps("swin_profile", SWIN_NAME, run, step_ms, card_name)
 
 
+# ------------------------------------- checkpoint, replay, profile, ARAP ----
+
+def write_replay_schedule(path, names, n_init, cap, iters, densify_at, seed,
+                          dead=4):
+    """A schedule in train/replay.py's format: a random camera name per
+    iteration, standard normal noise ([cap, 3] each), and at each
+    densification ``dead`` rows relocated onto live ones and growth to
+    1.05 x the alive count (capped). Returns the final alive count."""
+    rng = np.random.default_rng(seed)
+    z = {"camera_names": np.array([names[i] for i in
+                                   rng.integers(0, len(names), iters)])}
+    n = n_init
+    for j, it in enumerate(densify_at):
+        mask = np.zeros(n, bool)
+        mask[rng.choice(n, dead, replace=False)] = True
+        z[f"densify_iter_{j}"] = np.asarray(it)
+        z[f"dead_{j}"] = mask
+        z[f"reloc_t_{j}"] = rng.choice(np.nonzero(~mask)[0], dead).astype(
+            np.int32)
+        z[f"add_p_{j}"] = np.asarray(n)
+        grow = min(cap, int(1.05 * n)) - n
+        z[f"add_t_{j}"] = rng.integers(0, n, grow).astype(np.int32)
+        n += grow
+    for it in range(1, iters):
+        z[f"noise_{it:05d}"] = rng.normal(size=(cap, 3)).astype(np.float32)
+    np.savez(path, **z)
+    return n
+
+
+RESUME = dict(iters=20, ckpt=10, densify_at=(4, 8, 14), dead=64)
+
+
+def resume_phase(st, wrappers, card_name):
+    """bench.py's 100k setting driven the way --replay_rng drives the
+    trainer (the split grad -> densify -> Adam + noise step every
+    iteration, cameras, noise and relocations from a schedule written
+    here): RESUME["iters"] steps with a checkpoint (utils/checkpoint.py)
+    at RESUME["ckpt"], then the checkpoint loaded and the run resumed from
+    it. Gates: the checkpoint round-trips bit-equal and every resumed loss
+    is within rel 1e-5 of the uninterrupted run's (the scatter-add
+    reduction's atomics may reorder sums; on the CPU it is bit-equal)."""
+    import torch
+
+    from gsplat_tpu_torch.model import optim
+    from gsplat_tpu_torch.train import step as step_lib
+    from gsplat_tpu_torch.train.config import OptimizationConfig
+    from gsplat_tpu_torch.train.replay import ReplaySchedule
+    from gsplat_tpu_torch.utils import checkpoint as ckpt_lib
+
+    cams, gts, settings = st["cams"], st["gts"], st["settings"]
+    names = [f"cam{i}" for i in range(len(cams))]
+    state = st["state"]
+    path = os.path.join(WORK, "resume_schedule.npz")
+    write_replay_schedule(path, names, state.n_alive, state.capacity,
+                          RESUME["iters"], RESUME["densify_at"], seed=3,
+                          dead=RESUME["dead"])
+    sched = ReplaySchedule(path, state.capacity)
+    opt = OptimizationConfig()
+    grad_step = step_lib.make_grad_step(opt, settings, 4.0)
+    apply_step = step_lib.make_apply_step(opt, 4.0, external_noise=True)
+    densify = step_lib.make_densify_replay_step()
+    bg = torch.zeros(3, device=DEVICE)
+
+    def run(state, adam, first, last):
+        losses = {}
+        for it in range(first, last + 1):
+            i = names.index(sched.camera_name(it))
+            grads, m = grad_step(state, cams[i], gts[i], bg, SH_DEGREE)
+            surgery = False
+            if sched.has_densify(it):
+                dm, rt, at, target = sched.densify_arrays(it)
+                surgery = bool(dm.any()) or target > state.n_alive
+                state, adam = densify(
+                    state, adam, *(torch.as_tensor(a, device=DEVICE)
+                                   for a in (dm, rt, at)), target)
+            state, adam = apply_step(
+                state, adam, grads, None, float(it), not surgery,
+                torch.as_tensor(sched.noise(it), device=DEVICE))
+            losses[it] = float(m.loss)
+        return state, adam, losses
+
+    for w in wrappers.values():
+        w.launches = 0
+    t0 = time.perf_counter()
+    n_ckpt, n_all = RESUME["ckpt"], RESUME["iters"]
+    s_half, a_half, first = run(state, optim.init(state.params()), 1, n_ckpt)
+    ckpt = os.path.join(WORK, f"chkpnt{n_ckpt}.npz")
+    ckpt_lib.save(ckpt, s_half, a_half, n_ckpt)
+    s_full, _, rest = run(s_half, a_half, n_ckpt + 1, n_all)
+    uninterrupted_s = time.perf_counter() - t0
+    s_load, a_load, it_load, _ = ckpt_lib.load(ckpt, DEVICE)
+    same = (it_load == n_ckpt and s_load.n_alive == s_half.n_alive
+            and a_load.count == a_half.count
+            and all(torch.equal(v, s_half.params()[k])
+                    for k, v in s_load.params().items())
+            and all(torch.equal(a_load.mu[k], a_half.mu[k])
+                    and torch.equal(a_load.nu[k], a_half.nu[k])
+                    for k in a_half.mu))
+    if not same:
+        raise AssertionError("resume: the checkpoint does not round-trip")
+    s_res, _, resumed = run(s_load, a_load, n_ckpt + 1, n_all)
+    torch.cuda.synchronize()
+    launches = {k: w.launches for k, w in wrappers.items()}
+    steps = n_all + (n_all - n_ckpt)
+    owner = launches["expand_scan"] + launches["merge_expand"]
+    if (launches["tile_blend_forward"] != steps or owner != steps
+            or launches["tile_blend_backward"] != steps
+            or sum(launches.values()) != 3 * steps
+            + launches["multi_cumsum"] or (launches["multi_cumsum"]
+                                           not in (0, steps))):
+        raise AssertionError(f"resume: launches {launches} over {steps} "
+                             f"steps")
+    rel = {it: abs(resumed[it] - rest[it]) / abs(rest[it]) for it in rest}
+    if max(rel.values()) > 1e-5 or not all(map(math.isfinite, rest.values())):
+        raise AssertionError(f"resume: losses {resumed} vs {rest}")
+    log("resume", card=card_name, setting="100k-800x800", iterations=n_all,
+        checkpoint_at=n_ckpt, densify_at=list(RESUME["densify_at"]),
+        relocated_per_event=RESUME["dead"], checkpoint_round_trip=True,
+        losses_uninterrupted={**first, **rest}, losses_resumed=resumed,
+        max_loss_rel=max(rel.values()),
+        params_bit_equal=all(torch.equal(v, s_res.params()[k])
+                             for k, v in s_full.params().items()),
+        uninterrupted_s=uninterrupted_s,
+        launches_per_step={k: v / steps for k, v in launches.items()})
+    return launches
+
+
+# the trainer CLI on the committed Blender fixture, replaying a schedule
+# written here: 12 iterations, densifications at 3, 6 and 9, cap 320
+REPLAY_FLAGS = ["-s", CLI_FIXTURE, "-w", "--cap_max", "320",
+                "--iterations", "12", "--densify_from_iter", "2",
+                "--densify_until_iter", "10", "--densification_interval",
+                "3", "--test_iterations", "-1", "--save_iterations", "-1",
+                "--dup_budget", "16384", "--tile_x", "16", "--tile_y", "16"]
+PROFILE_RANGE = (3, 8)
+
+
+def replay_phase(card_name):
+    """``python -m gsplat_tpu_torch.train.train_static --replay_rng`` on
+    the card (in RUN_COUNTED, with --profile_iterations) and on the port's
+    CPU path, one schedule; per-iteration loss rel <= 4.1e-4 (the
+    JAX-vs-reference bound). The card run's launch counts: one blend
+    forward, one blend backward and one owner expansion an iteration.
+    Returns (launches, the card run's model directory)."""
+    sched = os.path.join(WORK, "replay_schedule.npz")
+    write_replay_schedule(sched, [f"r_{i}" for i in range(8)], 256, 320,
+                          12, (3, 6, 9), seed=0)
+    outs = {d: os.path.join(WORK, f"replay_{d}") for d in ("card", "cpu")}
+    t0 = time.time()
+    _, launches = run_counted(
+        ["gsplat_tpu_torch.train.train_static", "-m", outs["card"],
+         "--replay_rng", sched, "--profile_iterations",
+         *map(str, PROFILE_RANGE)] + REPLAY_FLAGS
+        + ([] if DEVICE == "cuda" else ["--data_device", DEVICE]),
+        os.path.join(WORK, "replay_card.log"))
+    card_s = time.time() - t0
+    t0 = time.time()
+    res = subprocess.run(
+        [sys.executable, "-m", "gsplat_tpu_torch.train.train_static", "-m",
+         outs["cpu"], "--replay_rng", sched, "--data_device", "cpu"]
+        + REPLAY_FLAGS, cwd=ROOT, capture_output=True, text=True,
+        timeout=600)
+    if res.returncode:
+        raise RuntimeError("replay (CPU) rc={}: {}".format(
+            res.returncode, (res.stdout + res.stderr)[-3000:]))
+    cpu_s = time.time() - t0
+    losses = {}
+    for d, out in outs.items():
+        with open(os.path.join(out, "parity_ours.json")) as f:
+            losses[d] = {it: loss for it, _, loss in json.load(f)["losses"]}
+    rel = [abs(losses["card"][it] - losses["cpu"][it]) / abs(losses["cpu"][it])
+           for it in losses["cpu"]]
+    if sorted(losses["card"]) != list(range(1, 13)) or max(rel) > 4.1e-4:
+        raise AssertionError(f"replay: card {losses['card']} vs CPU "
+                             f"{losses['cpu']}")
+    owner = launches["expand_scan"] + launches["merge_expand"]
+    want = dict(tile_blend_forward=12, tile_blend_backward=12)
+    if (any(launches[k] != v for k, v in want.items()) or owner != 12
+            or launches["multi_cumsum"] or launches["render_forward"]
+            or launches["multi_cummax"]):
+        raise AssertionError(f"replay: launches {launches}")
+    log("replay", card=card_name, iterations=12, densify_at=[3, 6, 9],
+        losses_card=losses["card"], losses_cpu=losses["cpu"],
+        max_loss_rel=max(rel), card_cli_s=card_s, cpu_cli_s=cpu_s,
+        launches_per_iteration={k: v / 12 for k, v in launches.items()})
+    return launches, outs["card"]
+
+
+def profile_phase(model_dir, card_name):
+    """The card replay run's --profile_iterations trace
+    (<model>/profile/trace.json): it must name the port's blend forward,
+    blend backward and owner-expansion kernels."""
+    with open(os.path.join(model_dir, "profile", "trace.json")) as f:
+        events = json.load(f)["traceEvents"]
+    kernels = {}
+    for e in events:
+        if e.get("cat") == "kernel":
+            for name in PORT_KERNELS:
+                if name in e.get("name", ""):
+                    kernels[name] = kernels.get(name, 0) + 1
+    steps = PROFILE_RANGE[1] - PROFILE_RANGE[0]
+    owner = kernels.get("expand_scan_kernel", 0) + kernels.get(
+        "merge_expand_kernel", 0)
+    if (kernels.get("blend_forward_kernel") != steps
+            or kernels.get("blend_backward_kernel") != steps
+            or owner != steps):
+        raise AssertionError(f"profile: kernels in the trace {kernels}, "
+                             f"{steps} iterations")
+    log("profile_cli", card=card_name, iterations=list(PROFILE_RANGE),
+        trace_events=len(events), port_kernel_events=kernels)
+
+
+ARAP_KNN_ROWS = 400_000
+
+
+def arap_phase(st, state, wrappers, card_name):
+    """One fused swin step with ARAP (the trainer's --enable_arap weights
+    0.1, the k = 20 graph of the immature rows) at the SwinGS setting,
+    counts zeroed before it; ``arap_loss`` and its gradient on the card
+    against the same call on the CPU (1e-5 / 1e-4 of each leaf's max);
+    knn_indices' time over the immature rows and over ARAP_KNN_ROWS
+    rows (the union's)."""
+    import torch
+
+    from gsplat_tpu_torch.model import knn, optim
+    from gsplat_tpu_torch.train import losses, swin_step
+    from gsplat_tpu_torch.train.config import OptimizationConfig
+
+    t0 = time.perf_counter()
+    nbr = knn.knn_indices(state.im.xyz, k=20)[1]
+    torch.cuda.synchronize()
+    knn_s = time.perf_counter() - t0
+    union = torch.cat([state.im.xyz, state.m_xyz])[:ARAP_KNN_ROWS]
+    t0 = time.perf_counter()
+    knn.knn_indices(union, k=20)
+    torch.cuda.synchronize()
+    knn_union_s = time.perf_counter() - t0
+    step = swin_step.make_swin_train_step(OptimizationConfig(),
+                                          st["settings"], 4.0,
+                                          arap_weights=(0.1, 0.1, 0.1))
+    gen = torch.Generator(device=DEVICE)
+    gen.manual_seed(5)
+    for w in wrappers.values():
+        w.launches = 0
+    t0 = time.perf_counter()
+    _, _, m = step(state, optim.init(state.params()), gen, st["cams"][1],
+                   st["gts"][1], torch.zeros(3, device=DEVICE), 3.0, 1.0,
+                   SWIN["sh"], nbr_indices=nbr)
+    loss = float(m.loss)
+    step_ms = (time.perf_counter() - t0) * 1e3
+    launches = {k: w.launches for k, w in wrappers.items()}
+    swin_launches_ok(launches, 1, "arap")
+    xyz = state.im.xyz.detach()
+    pens, grads = {}, {}
+    for dev in (DEVICE, "cpu"):
+        paras = [getattr(state, k).detach().to(dev).requires_grad_(True)
+                 for k in ("rigid_v", "rigid_rotvec", "rigid_rotcen")]
+        p = losses.arap_loss(xyz.to(dev), paras, nbr.to(dev))
+        p.sum().backward()
+        pens[dev] = p.detach().cpu()
+        grads[dev] = [q.grad.cpu() for q in paras]
+    rel = ((pens[DEVICE] - pens["cpu"]).abs()
+           / pens["cpu"].abs().clamp(min=1e-30))
+    grad_rel = [float((a - b).abs().max() / b.abs().max().clamp(min=1e-30))
+                for a, b in zip(grads[DEVICE], grads["cpu"])]
+    if not math.isfinite(loss) or float(rel.max()) > 1e-5 or \
+            max(grad_rel) > 1e-4:
+        raise AssertionError(f"arap: loss {loss}, penalties {pens}, "
+                             f"gradient rel {grad_rel}")
+    log("arap", card=card_name, setting=SWIN_NAME,
+        immature_rows=state.capacity, k=20, loss=loss,
+        penalties=pens[DEVICE].tolist(), penalty_rel_card_cpu=float(rel.max()),
+        grad_rel_card_cpu=grad_rel, step_ms=step_ms,
+        knn_s_immature=knn_s, knn_rows_union=union.shape[0],
+        knn_s_union=knn_union_s, launches=launches)
+    return launches
+
+
+# ------------------------------------------------------------- parallel ----
+
+# the multi-rank modes, four gloo ranks sharing the one card; "two" modes
+# run on ranks 0 and 1 while 2 and 3 wait, dp x ps on all four
+PARALLEL_STEPS = 3     # per mode: step A (noise off, compared) + 2 timed
+# pshard's and dp x ps's first Adam moment against the gradient of the
+# same slab-composited loss taken in one process (_slab_reference_grads),
+# as a share of the leaf's largest
+PS_MU_REL = 1e-4
+
+
+def _digest(tensors) -> str:
+    import hashlib
+
+    h = hashlib.sha256()
+    for t in tensors:
+        h.update(t.detach().contiguous().cpu().numpy().tobytes())
+    return h.hexdigest()
+
+
+def _masked_diff(got, ref, grad):
+    """Max |got - ref| over the entries whose gradient is at least 2e-4
+    of the leaf's max (Adam's first step is lr * sign(g))."""
+    keep = grad.abs() >= 2e-4 * grad.abs().max()
+    return float((got - ref).abs()[keep].max()) if bool(keep.any()) else 0.0
+
+
+def _shard_update_diffs(params, adam, ref, grad, mesh):
+    """This rank's ps rows after step A against a reference step's
+    (params ``ref`` from gradient ``grad``, whole rows): (the masked
+    parameter difference of ``_masked_diff``, the largest
+    |mu - (1 - b1) g| over the leaf's largest |(1 - b1) g|). Adam's first
+    moment carries the gradient's scale, which the first update (about
+    lr * sign(g)) does not."""
+    from gsplat_tpu_torch.parallel import mesh as mesh_lib
+
+    p_diff = mu_rel = 0.0
+    for k in ref:
+        g = mesh_lib.shard_rows(grad[k], mesh, "ps")
+        p_diff = max(p_diff, _masked_diff(
+            params[k], mesh_lib.shard_rows(ref[k], mesh, "ps"), g))
+        want = (1 - 0.9) * g
+        top = float(want.abs().max())
+        err = float((adam.mu[k] - want).abs().max())
+        mu_rel = max(mu_rel, err / top if top > 0 else err)
+    return p_diff, mu_rel
+
+
+def _slab_reference_grads(params, alive, cams, gts, bg, settings, opt,
+                          n_alive, mesh):
+    """The gradient of pshard's loss for whole rows, taken in this one
+    process and averaged over ``cams``: both depth slabs rasterized here
+    and folded in depth order, the regularisers summed over all rows, no
+    collective in the loss or its backward. The slab bounds (bookkeeping,
+    not differentiated) come from ``pshard._slab_bounds`` over ``mesh``'s
+    ps axis, as in the step, so the ranks of that axis call this
+    together. What it holds the ranks' step to: the all-gather, its
+    reduce-scatter backward, the /n loss and the regulariser sums."""
+    import dataclasses as dc
+
+    import torch
+
+    from gsplat_tpu_torch.core.quaternion import normalize
+    from gsplat_tpu_torch.parallel import pshard as ps
+    from gsplat_tpu_torch.raster.rasterize import rasterize
+    from gsplat_tpu_torch.train import losses
+
+    settings = dc.replace(settings, layout="chw")
+    n = mesh.shape["ps"]
+    total = {k: torch.zeros_like(v) for k, v in params.items()}
+    for cam, gt in zip(cams, gts):
+        p = {k: v.detach().requires_grad_(True) for k, v in params.items()}
+        opa = torch.sigmoid(p["opacity"])
+        depth = ps._view_depth(p["xyz"].detach(), cam)
+        bounds, hi = ps._slab_bounds(depth, alive & (depth > ps.ZNEAR_CULL),
+                                     n, mesh, "ps")
+        logd = ps._log_depth(depth, hi)
+        c = t = None
+        for d in range(n):
+            mine = (logd >= bounds[d]) & (logd < bounds[d + 1])
+            out = rasterize(p["xyz"], torch.exp(p["scaling"]),
+                            normalize(p["rotation"]), opa[:, 0],
+                            torch.cat([p["f_dc"], p["f_rest"]], dim=1), cam,
+                            SH_DEGREE, torch.zeros(3, device=bg.device),
+                            settings, alive=alive & mine)
+            c = out.image if c is None else c + t * out.image
+            t = (out.final_t[None] if t is None
+                 else t * out.final_t[None])
+        img = c + t * bg[:, None, None]
+        loss = ((1 - opt.lambda_dssim) * losses.l1_loss(img, gt)
+                + opt.lambda_dssim * (1 - losses.ssim(img, gt)))
+        af = alive.to(torch.float32)
+        denom = float(max(n_alive, 1))
+        loss = loss + opt.opacity_reg * torch.sum(opa[:, 0] * af) / denom
+        loss = loss + opt.scale_reg * torch.sum(
+            torch.mean(torch.exp(p["scaling"]), dim=1) * af) / denom
+        for k, g in zip(p, torch.autograd.grad(loss, list(p.values()))):
+            total[k] += g / len(cams)
+    return total
+
+
+def _slab_reference_diffs(state, adam_a, params_a, cams, gts, bg, settings,
+                          opt, mesh):
+    """(masked param diff, first-moment share) of this rank's step-A rows
+    against the step that ``_slab_reference_grads`` gives."""
+    from gsplat_tpu_torch.model import optim
+    from gsplat_tpu_torch.train import step as step_lib
+
+    grad = _slab_reference_grads(state.params(), state.alive_mask, cams,
+                                 gts, bg, settings, opt, state.n_alive, mesh)
+    _, lrs = step_lib.learning_rates(opt, 4.0, 1.0)
+    ref = optim.step(state.params(), grad, optim.init(state.params()),
+                     lrs)[0]
+    return _shard_update_diffs(params_a, adam_a, ref, grad, mesh)
+
+
+def parallel_inputs(setups, swin_st, eval_state, card_name):
+    """The inputs of the parallel phase and their single-device references
+    on the card: the dp / pshard / dp x ps setting (bench.py's train-1m,
+    cameras 0 and 1), the swin setting (cameras 0 and 1 at frames 0 and
+    1), the eval phase's 1M-row model at 1237 x 822 for the tileshard
+    render. Saved for the ranks; returns the path."""
+    import dataclasses as dc
+
+    import torch
+
+    from gsplat_tpu_torch.core.camera import make_camera
+    from gsplat_tpu_torch.model import optim
+    from gsplat_tpu_torch.raster import rasterize as rast
+    from gsplat_tpu_torch.train import step as step_lib
+    from gsplat_tpu_torch.train import swin_step
+    from gsplat_tpu_torch.train.config import (OptimizationConfig,
+                                               PipelineConfig)
+    from gsplat_tpu_torch.train.train_static import make_settings
+
+    opt0 = OptimizationConfig(noise_lr=0.0)
+    bg = torch.zeros(3, device=DEVICE)
+    st = setups["1m-1296x840"]
+    chw = dc.replace(st["settings"], layout="chw")
+    grads, losses = [], []
+    for i in (0, 1):
+        g, m = step_lib._loss_and_grads(opt0, chw, st["state"],
+                                        st["cams"][i], st["gts"][i], bg,
+                                        SH_DEGREE)
+        grads.append(g)
+        losses.append(float(m.loss))
+    mean = {k: (grads[0][k] + grads[1][k]) / 2 for k in grads[0]}
+    _, lrs = step_lib.learning_rates(opt0, 4.0, 1.0)
+    ref = optim.step(st["state"].params(), mean,
+                     optim.init(st["state"].params()), lrs)[0]
+    # pshard trains camera 0 alone: its reference is camera 0's step
+    ref0 = optim.step(st["state"].params(), grads[0],
+                      optim.init(st["state"].params()), lrs)[0]
+    train = dict(state=st["state"], cams=st["cams"][:2], gts=st["gts"][:2],
+                 settings=st["settings"], loss_cam=losses, ref=ref,
+                 mean_grad=mean, ref0=ref0, grad0=grads[0])
+    del grads
+
+    schw = dc.replace(swin_st["settings"], layout="chw")
+    sgrads, slosses = [], []
+    for i in (0, 1):
+        g, m = swin_step._loss_and_grads(opt0, schw, swin_st["state"],
+                                         swin_st["cams"][i],
+                                         swin_st["gts"][i], bg, float(i),
+                                         SWIN["sh"])
+        sgrads.append(g)
+        slosses.append(float(m.loss))
+    smean = {k: (sgrads[0][k] + sgrads[1][k]) / 2 for k in sgrads[0]}
+    _, slrs = swin_step.swin_learning_rates(opt0, 4.0, 1.0)
+    sref = optim.step(swin_st["state"].params(), smean,
+                      optim.init(swin_st["state"].params()), slrs)[0]
+    swin = dict(state=swin_st["state"], cams=swin_st["cams"][:2],
+                gts=swin_st["gts"][:2], settings=swin_st["settings"],
+                frames=[0.0, 1.0], loss_cam=slosses, ref=sref,
+                mean_grad=smean)
+    del sgrads
+
+    rcw, pos = orbit_poses(1, radius=4.0, center=(0.0, 0.0, 0.0))[0]
+    cam = make_camera(rcw, -rcw.T @ pos, 0.9, 0.9, EVAL["width"],
+                      EVAL["height"], device=DEVICE)
+    ts_settings = make_settings(PipelineConfig(), EVAL["cap"])
+    with torch.no_grad():
+        ts_ref = rast.rasterize(
+            eval_state.xyz, eval_state.get_scaling(),
+            eval_state.get_rotation(), eval_state.get_opacity()[:, 0],
+            eval_state.get_features(), cam, SH_DEGREE, bg, ts_settings,
+            alive=eval_state.alive_mask)
+    tile = dict(state=eval_state, camera=cam, settings=ts_settings,
+                ref=ts_ref.image, num_dup=int(ts_ref.num_dup))
+    path = os.path.join(WORK, "parallel_inputs.pt")
+    torch.save(dict(train=train, swin=swin, tile=tile, card=card_name),
+               path)
+    return path
+
+
+def _rank_wrappers():
+    from gsplat_tpu_torch.raster import scan_kernel, tile_kernel
+
+    return {"expand_scan": scan_kernel.expand_scan,
+            "merge_expand": scan_kernel.merge_expand,
+            "render_forward": tile_kernel.render_forward,
+            "tile_blend_forward": tile_kernel.tile_blend_forward,
+            "tile_blend_backward": tile_kernel.tile_blend_backward,
+            "multi_cumsum": scan_kernel.multi_cumsum,
+            "multi_cummax": scan_kernel.multi_cummax}
+
+
+def _run_mode(mode, steps, run, capture_on, card_name, out):
+    """Run ``run(i)`` for i < steps with the launch counts
+    zeroed before and read after (per step), the first step's kernel
+    inputs recorded when ``capture_on``; wall ms of the later steps.
+    Returns the recorded inputs."""
+    import torch
+    import torch.distributed as dist
+
+    from gsplat_tpu_torch.raster import binning
+
+    def sync():
+        if torch.cuda.is_available():
+            torch.cuda.synchronize()
+
+    wrappers = _rank_wrappers()
+    for w in wrappers.values():
+        w.launches = 0
+    store = {"blend_forward": [], "blend_backward": [], "multi_cumsum": []}
+    owners = {"merge_expand": [], "expand_scan": []}
+    ms = []
+    for i in range(steps):
+        sync()
+        t0 = time.perf_counter()
+        if i == 0 and capture_on:
+            with capture_ext(store), \
+                    capture(binning, "merge_expand", owners["merge_expand"]), \
+                    capture(binning, "expand_scan", owners["expand_scan"]):
+                run(i)
+        else:
+            run(i)
+        sync()
+        if i:
+            ms.append((time.perf_counter() - t0) * 1e3)
+    out.setdefault("launches_per_step", {})[mode] = {
+        k: w.launches / steps for k, w in wrappers.items()}
+    out.setdefault("ms_per_step", {})[mode] = ms
+    out.setdefault("rank", dist.get_rank())
+    cap = {k: v[0] for k, v in store.items() if v}
+    for k, v in owners.items():
+        if v:
+            cap[k] = v[0][0]
+    return cap
+
+
+def _check_mode_kernels(mode, cap, card_name):
+    """Rank 0: each kernel of the mode against its plain version on the
+    recorded inputs, by the train and eval phases' gates."""
+    import torch
+
+    from gsplat_tpu_torch.raster import scan_kernel
+
+    with torch.no_grad():
+        if "blend_backward" in cap:
+            _check_training_kernels({mode: cap}, card_name)
+            if "merge_expand" in cap:
+                check_merge_expand(*cap["merge_expand"], card_name,
+                                   setting=mode)
+            else:
+                marks, base_in = cap["expand_scan"]
+                check_expand(scan_kernel.expand_scan, marks, base_in,
+                             scan_kernel.expand_scan_plain(marks, base_in))
+        else:
+            log("kernel_eval_path", card=card_name, setting=mode,
+                **check_eval_kernels(cap["expand_scan"],
+                                     cap["blend_forward"]))
+
+
+def parallel_rank(inputs_path, card_name):
+    """One rank of the parallel phase (gloo, every rank on card 0)."""
+    import dataclasses as dc
+
+    import torch
+    import torch.distributed as dist
+
+    from gsplat_tpu_torch.model import optim
+    from gsplat_tpu_torch.parallel import mesh as mesh_lib
+    from gsplat_tpu_torch.parallel import pshard as pshard_mod
+    from gsplat_tpu_torch.parallel.dp import (make_dp_densify_step,
+                                              make_dp_train_step)
+    from gsplat_tpu_torch.parallel.pshard import make_pshard_train_step
+    from gsplat_tpu_torch.parallel.swin_dp import make_dp_swin_train_step
+    from gsplat_tpu_torch.parallel.tileshard import make_tileshard_render
+    from gsplat_tpu_torch.train import step as step_lib
+    from gsplat_tpu_torch.train import swin_step
+    from gsplat_tpu_torch.train.config import OptimizationConfig
+
+    rank = dist.get_rank()
+    # every rank on the card (the CPU in a rehearsal without one)
+    dev = (torch.device("cuda", torch.cuda.current_device())
+           if torch.cuda.is_available() else torch.device("cpu"))
+    check = dev.type == "cuda"
+    cap_on = rank == 0 and check      # rank 0 records the kernel inputs
+    inp = torch.load(inputs_path, map_location=dev, weights_only=False)
+    g01 = dist.new_group([0, 1])
+    mesh2d = mesh_lib.make_mesh_2d(2, 2, device=dev)
+    out = {}
+    opt0, opt = OptimizationConfig(noise_lr=0.0), OptimizationConfig()
+    bg = torch.zeros(3, device=dev)
+
+    def gen(seed):
+        g = torch.Generator(device=dev)
+        g.manual_seed(seed)
+        return g
+
+    tr = inp["train"]
+    if rank < 2:
+        mesh = mesh_lib.Mesh({a: mesh_lib.Axis(g01, 2, rank)
+                              for a in ("dp", "ps", "sp")}, dev)
+        # dp: step A without noise, then noisy steps and a relocation
+        carry = {}
+        step0 = make_dp_train_step(mesh, opt0, tr["settings"], 4.0)
+        stepn = make_dp_train_step(mesh, opt, tr["settings"], 4.0)
+        densify = make_dp_densify_step(mesh, tr["state"].capacity)
+        g = gen(0)
+
+        def run_dp(i):
+            s, a = carry.get("s", tr["state"]), carry.get(
+                "a", optim.init(tr["state"].params()))
+            fn = step0 if i == 0 else stepn
+            s, a, m = fn(s, a, g, tr["cams"][rank], tr["gts"][rank], bg,
+                         float(i + 1), SH_DEGREE)
+            if i == 0:
+                out["dp_loss"] = float(m.loss)
+                out["dp_param_diff"] = max(
+                    _masked_diff(s.params()[k], tr["ref"][k],
+                                 tr["mean_grad"][k]) for k in tr["ref"])
+                out["dp_param_max_diff_all"] = max(
+                    float((s.params()[k] - tr["ref"][k]).abs().max())
+                    for k in tr["ref"])
+            if i == 1:
+                s, a = densify(s, a, g)
+            carry.update(s=s, a=a)
+
+        cap = _run_mode("dp", PARALLEL_STEPS, run_dp, cap_on,
+                        card_name, out)
+        out["dp_digest"] = _digest(list(carry["s"].params().values())
+                                   + list(carry["a"].mu.values()))
+        if rank == 0 and check:
+            _check_mode_kernels("dp-1m-1296x840", cap, card_name)
+        carry.clear()
+
+        # pshard train over two shards, camera 0
+        state = tr["state"]
+        rows = {k: mesh_lib.shard_rows(v, mesh, "ps")
+                for k, v in state.params().items()}
+        alive = mesh_lib.shard_rows(state.alive_mask, mesh, "ps")
+        ps0 = make_pshard_train_step(mesh, opt0, tr["settings"], 4.0,
+                                     SH_DEGREE)
+        psn = make_pshard_train_step(mesh, opt, tr["settings"], 4.0,
+                                     SH_DEGREE)
+        ng = gen(1 + rank)
+
+        def run_ps(i):
+            p, a = carry.get("p", rows), carry.get("a", optim.init(rows))
+            slab = []
+            with capture(pshard_mod, "rasterize", slab):
+                p, a, m = (ps0 if i == 0 else psn)(
+                    p, alive, a, ng, tr["cams"][0], tr["gts"][0], bg,
+                    float(i + 1), state.n_alive)
+            if i == 0:
+                out["ps_loss"] = float(m.loss)
+                # the slabs' semantics against the single device (not a
+                # gate: the back slab goes on where the front one stopped)
+                (out["ps_vs_single_param_diff"],
+                 out["ps_vs_single_mu_rel"]) = _shard_update_diffs(
+                    p, a, tr["ref0"], tr["grad0"], mesh)
+                carry["A"] = (p, a)
+                # the rows of this rank's depth slab
+                out["ps_slab_rows"] = int(slab[0][1]["alive"].sum())
+            carry.update(p=p, a=a)
+
+        cap = _run_mode("pshard", PARALLEL_STEPS, run_ps, cap_on,
+                        card_name, out)
+        if rank == 0 and check:
+            _check_mode_kernels("pshard-1m-1296x840", cap, card_name)
+        out["ps_param_diff"], out["ps_mu_rel"] = _slab_reference_diffs(
+            state, carry["A"][1], carry["A"][0], tr["cams"][:1],
+            tr["gts"][:1], bg, tr["settings"], opt0, mesh)
+        carry.clear()
+
+        # swin-dp, cameras 0 / 1 at frames 0 / 1
+        sw = inp["swin"]
+        sstep0 = make_dp_swin_train_step(mesh, opt0, sw["settings"], 4.0)
+        sstepn = make_dp_swin_train_step(mesh, opt, sw["settings"], 4.0)
+        sg = gen(0)
+
+        def run_sdp(i):
+            s, a = carry.get("s", sw["state"]), carry.get(
+                "a", optim.init(sw["state"].params()))
+            s, a, m = (sstep0 if i == 0 else sstepn)(
+                s, a, sg, sw["cams"][rank], sw["gts"][rank],
+                sw["frames"][rank], sw["frames"][0], bg, float(i + 1),
+                SWIN["sh"])
+            if i == 0:
+                out["sdp_loss"] = float(m.loss)
+                out["sdp_param_diff"] = max(
+                    _masked_diff(s.params()[k], sw["ref"][k],
+                                 sw["mean_grad"][k]) for k in sw["ref"])
+            carry.update(s=s, a=a)
+
+        cap = _run_mode("swin_dp", PARALLEL_STEPS, run_sdp, cap_on,
+                        card_name, out)
+        out["sdp_digest"] = _digest(list(carry["s"].params().values()))
+        if rank == 0 and check:
+            _check_mode_kernels(f"swin_dp-{SWIN_NAME}", cap, card_name)
+        carry.clear()
+
+        # tileshard render of the eval model, two bands
+        tl = inp["tile"]
+        es = tl["state"]
+        render = make_tileshard_render(mesh, tl["settings"], SH_DEGREE)
+        args = (es.xyz, es.get_scaling(), es.get_rotation(),
+                es.get_opacity()[:, 0], es.get_features(), es.alive_mask)
+
+        def run_ts(i):
+            img = render(*args, tl["camera"], bg)
+            if i == 0:
+                out["ts_max_abs"] = float(
+                    (img - tl["ref"]).abs().max())
+
+        cap = _run_mode("tileshard", PARALLEL_STEPS, run_ts, cap_on,
+                        card_name, out)
+        if rank == 0 and check:
+            _check_mode_kernels(f"tileshard-{EVAL_NAME}", cap, card_name)
+    dist.barrier()
+
+    # dp x ps: dp rows take cameras 0 / 1, ps shards of each row
+    state = tr["state"]
+    rows = {k: mesh_lib.shard_rows(v, mesh2d, "ps")
+            for k, v in state.params().items()}
+    alive = mesh_lib.shard_rows(state.alive_mask, mesh2d, "ps")
+    row = mesh2d.axis_index("dp")
+    d0 = make_pshard_train_step(mesh2d, opt0, tr["settings"], 4.0,
+                                SH_DEGREE, dp_axis="dp")
+    dn = make_pshard_train_step(mesh2d, opt, tr["settings"], 4.0,
+                                SH_DEGREE, dp_axis="dp")
+    ng = gen(1 + mesh2d.axis_index("ps"))
+    carry = {}
+
+    def run_2d(i):
+        p, a = carry.get("p", rows), carry.get("a", optim.init(rows))
+        slab = []
+        with capture(pshard_mod, "rasterize", slab):
+            p, a, m = (d0 if i == 0 else dn)(
+                p, alive, a, ng, tr["cams"][row], tr["gts"][row], bg,
+                float(i + 1), state.n_alive)
+        if i == 0:
+            out["dps_loss"] = float(m.loss)
+            (out["dps_vs_single_param_diff"],
+             out["dps_vs_single_mu_rel"]) = _shard_update_diffs(
+                p, a, tr["ref"], tr["mean_grad"], mesh2d)
+            carry["A"] = (p, a)
+            out["dps_slab_rows"] = int(slab[0][1]["alive"].sum())
+        carry.update(p=p, a=a)
+
+    cap = _run_mode("dp_x_ps", PARALLEL_STEPS, run_2d, cap_on,
+                    card_name, out)
+    out["dps_digest"] = _digest(list(carry["p"].values()))
+    if rank == 0 and check:
+        _check_mode_kernels("dp_x_ps-1m-1296x840", cap, card_name)
+    out["dps_param_diff"], out["dps_mu_rel"] = _slab_reference_diffs(
+        state, carry["A"][1], carry["A"][0], tr["cams"], tr["gts"], bg,
+        tr["settings"], opt0, mesh2d)
+    if check:
+        out["peak_mem_gib"] = torch.cuda.max_memory_allocated() / 2 ** 30
+    gathered = [None] * dist.get_world_size()
+    dist.all_gather_object(gathered, out)
+    return gathered if rank == 0 else None
+
+
+def parallel_phase(setups, swin_st, eval_state, card_name):
+    """The multi-rank modes on four gloo ranks sharing the card, each held
+    against the single-device path on the card: dp and swin-dp loss rel
+    <= 1e-5 of the camera mean and params within 2e-4 over the entries
+    whose mean gradient is at least 2e-4 of the leaf's max, the replicated
+    state bit-equal across ranks after the noisy steps (a relocation
+    included for dp); pshard and dp x ps loss rel <= 5e-3 of the
+    single-device loss, their parameters after step A within 2e-4 over
+    the same masked entries, and their first Adam moment within
+    PS_MU_REL of the leaf's largest, of the step that the same
+    slab-composited loss gives in one process (camera 0 for pshard, the
+    camera mean for dp x ps; ``_slab_reference_grads``), dp x ps shards
+    bit-equal across dp rows;
+    tileshard within 2e-5 of the single-device frame. Every step launches
+    one blend forward, blend backward and owner expansion per rank, and
+    multi_cumsum where the rows exceed 250k (all three settings). Step
+    times are of N ranks sharing one card, not a scaling figure. Returns
+    the launches summed over the ranks."""
+    import torch
+
+    from gsplat_tpu_torch.parallel import launch
+
+    t0 = time.time()
+    path = parallel_inputs(setups, swin_st, eval_state, card_name)
+    tr = torch.load(path, map_location="cpu", weights_only=False)
+    loss_cam = tr["train"]["loss_cam"]
+    sloss_cam = tr["swin"]["loss_cam"]
+    del tr
+    torch.cuda.empty_cache()
+    setup_s = time.time() - t0
+    t0 = time.time()
+    res = launch.run(parallel_rank, 4, DEVICE, (path, card_name),
+                     backend="gloo")
+    run_s = time.time() - t0
+    r0, r1, r2, r3 = res
+    dp_mean, sdp_mean = float(np.mean(loss_cam)), float(np.mean(sloss_cam))
+
+    def rel(a, b):
+        return abs(a - b) / abs(b)
+
+    fails = []
+    for r in (r0, r1):
+        if rel(r["dp_loss"], dp_mean) > 1e-5 or r["dp_param_diff"] > 2e-4:
+            fails.append(f"dp rank {r['rank']}: {r['dp_loss']} vs {dp_mean}"
+                         f", params {r['dp_param_diff']}")
+        if rel(r["sdp_loss"], sdp_mean) > 1e-5 or r["sdp_param_diff"] > 2e-4:
+            fails.append(f"swin-dp rank {r['rank']}: {r['sdp_loss']} vs "
+                         f"{sdp_mean}, params {r['sdp_param_diff']}")
+        if rel(r["ps_loss"], loss_cam[0]) > 5e-3 or \
+                r["ps_param_diff"] > 2e-4 or r["ps_mu_rel"] > PS_MU_REL:
+            fails.append(f"pshard rank {r['rank']}: {r['ps_loss']} vs "
+                         f"{loss_cam[0]}, params {r['ps_param_diff']}, "
+                         f"mu {r['ps_mu_rel']}")
+        if r["ts_max_abs"] > 2e-5:
+            fails.append(f"tileshard rank {r['rank']}: {r['ts_max_abs']}")
+    for r in res:
+        if rel(r["dps_loss"], dp_mean) > 5e-3 or \
+                r["dps_param_diff"] > 2e-4 or r["dps_mu_rel"] > PS_MU_REL:
+            fails.append(f"dp x ps rank {r['rank']}: {r['dps_loss']} vs "
+                         f"{dp_mean}, params {r['dps_param_diff']}, "
+                         f"mu {r['dps_mu_rel']}")
+    if r0["dp_digest"] != r1["dp_digest"]:
+        fails.append("dp: the replicated state differs across ranks")
+    if r0["sdp_digest"] != r1["sdp_digest"]:
+        fails.append("swin-dp: the replicated state differs across ranks")
+    if r0["dps_digest"] != r2["dps_digest"] or \
+            r1["dps_digest"] != r3["dps_digest"]:
+        fails.append("dp x ps: the shards differ across dp rows")
+    train_want = dict(tile_blend_forward=1, tile_blend_backward=1,
+                      merge_expand=1, multi_cumsum=1)
+    for r in res:
+        for mode, per in r["launches_per_step"].items():
+            if mode == "tileshard":
+                owner = per["expand_scan"] + per["merge_expand"]
+                ok = (per["tile_blend_forward"] == 1 and owner == 1
+                      and sum(per.values()) == 2)
+            else:
+                ok = all(per[k] == train_want.get(k, 0) for k in per)
+            if not ok:
+                fails.append(f"rank {r['rank']} {mode}: launches {per}")
+    if fails:
+        raise AssertionError("parallel: " + "; ".join(fails))
+    launches = {k: 0 for k in r0["launches_per_step"]["dp"]}
+    for r in res:
+        for mode, per in r["launches_per_step"].items():
+            for k, v in per.items():
+                launches[k] += int(round(v * PARALLEL_STEPS))
+    log("parallel", card=card_name, ranks=4, backend="gloo",
+        note="N ranks sharing one H100 over gloo: not a scaling figure",
+        settings={"dp / pshard / dp_x_ps": "1m-1296x840",
+                  "swin_dp": SWIN_NAME, "tileshard": EVAL_NAME},
+        single_device_loss_cam01=loss_cam, swin_loss_cam01=sloss_cam,
+        per_rank=[{k: v for k, v in r.items() if not k.endswith("digest")}
+                  for r in res],
+        replicated_bit_equal=True, setup_s=setup_s, ranks_s=run_s)
+    return launches
+
+
 def main() -> int:
     try:
         import torch
@@ -2383,12 +3267,18 @@ def main() -> int:
     swin_launches["slide"] = swin_slide(swin_st, *swin_trained, wrappers,
                                         card_name)
     swin_launches["cli"] = swin_cli(wrappers, card_name)
-    for name in wrappers:
-        kernels[name]["launches"] = sum(
-            n.get(name, 0) for group in (launches, train_launches,
-                                         swin_launches,
-                                         {EVAL_NAME: eval_launches})
-            for n in group.values())
+
+    # ---- resume from a checkpoint under replayed draws, the replay CLI
+    # on the card and the CPU (its trace read back), ARAP; counts zeroed
+    # before each
+    more_launches = {}
+    more_launches["resume"] = resume_phase(setups["100k-800x800"], wrappers,
+                                           card_name)
+    more_launches["replay"], replay_dir = replay_phase(card_name)
+    profile_phase(replay_dir, card_name)
+    # ARAP on the trained swin state (its rigid motion is not zero)
+    more_launches["arap"] = arap_phase(swin_st, swin_trained[0], wrappers,
+                                       card_name)
 
     # ---- device time by kernel, after every unprofiled timing
     for setting, fn in render_fns.items():
@@ -2398,6 +3288,24 @@ def main() -> int:
         profile_train(name, st, *trained[name], step_ms[name], card_name)
     profile_swin(swin_st, *swin_trained, swin_ms, card_name)
     cummax_device_ms(kernels["multi_cummax"], card_name)
+
+    # ---- the multi-rank modes, in processes of their own (their times are
+    # not slowed by this process's profiles); this process first lets go
+    # of what they do not need
+    eval_state = trained["1m-1296x840"][0]
+    del sv, render_fns, store, cap, images, train_caps, swin_cap, trained
+    del swin_trained
+    gc.collect()
+    torch.cuda.empty_cache()
+    more_launches["parallel"] = parallel_phase(setups, swin_st, eval_state,
+                                               card_name)
+    for name in wrappers:
+        kernels[name]["launches"] = sum(
+            n.get(name, 0) for group in (launches, train_launches,
+                                         swin_launches,
+                                         {EVAL_NAME: eval_launches},
+                                         more_launches)
+            for n in group.values())
 
     log("done", card=card_name, seconds=time.time() - t_start)
     print(card_name)

@@ -1,5 +1,6 @@
 """Mean squared distance to the 3 nearest neighbours, for the scale
-initialisation (port of gsplat_tpu/model/knn.py).
+initialisation, and exact k-NN indices for the ARAP regulariser (port of
+gsplat_tpu/model/knn.py).
 
 Exact at every P, like the reference's simple-knn
 (submodules/simple-knn/simple_knn.cu:185-221):
@@ -11,6 +12,9 @@ Exact at every P, like the reference's simple-knn
   each sorted block compared with its 3-block neighbourhood, every answer
   certified by the AABB lower bound of each out-of-window block, and the
   certificate's violators rescanned exactly against all points.
+
+``knn_indices`` is the blocked distance matrix at every P (as JAX's), with
+the neighbour ids carried through the top-k merge.
 
 These are plain torch ops: the JAX package leaves them to XLA, not Pallas.
 """
@@ -34,13 +38,15 @@ def _pad(points: torch.Tensor, block: int, value: float = 0.0):
 
 
 def _topk_rows_vs_all(row_pts, row_ids, points, block: int, k: int = 3):
-    """Exact top-k squared distances of ``row_pts`` [V, 3] (global ids
-    ``row_ids`` excluded as self) against all ``points``, streamed over
-    column blocks. Returns [V, k] ascending."""
+    """Exact top-k of ``row_pts`` [V, 3] (global ids ``row_ids`` excluded
+    as self) against all ``points``, streamed over column blocks: ([V, k]
+    ascending squared distances, [V, k] int64 neighbour ids)."""
     p = points.shape[0]
     row_sq = (row_pts * row_pts).sum(dim=1)
-    best = torch.full((row_pts.shape[0], k), float("inf"),
-                      device=points.device)
+    best_d = torch.full((row_pts.shape[0], k), float("inf"),
+                        device=points.device)
+    best_i = torch.zeros((row_pts.shape[0], k), dtype=torch.int64,
+                         device=points.device)
     for start in range(0, p, block):
         col = points[start:start + block]
         col_sq = (col * col).sum(dim=1)
@@ -50,16 +56,35 @@ def _topk_rows_vs_all(row_pts, row_ids, points, block: int, k: int = 3):
         d2 = torch.where(col_ids[None, :] == row_ids[:, None],
                          torch.full_like(d2, float("inf")),
                          torch.clamp(d2, min=0.0))
-        merged = torch.cat([best, d2], dim=1)
-        best = torch.topk(merged, k, dim=1, largest=False).values
-    return best
+        merged_d = torch.cat([best_d, d2], dim=1)
+        merged_i = torch.cat([best_i, col_ids[None, :].expand(
+            row_pts.shape[0], -1)], dim=1)
+        best_d, j = torch.topk(merged_d, k, dim=1, largest=False)
+        best_i = torch.gather(merged_i, 1, j)
+    return best_d, best_i
+
+
+@torch.no_grad()
+def knn_indices(points: torch.Tensor, k: int = 20, block: int = 4096):
+    """Exact k nearest neighbours (self excluded) of each of ``points``
+    [P, 3]: (squared distances [P, k] ascending, ids [P, k] int64). The
+    replacement for the open3d KDTree the reference's ARAP regulariser
+    builds its graph with (utils/loss_utils.py:71-101)."""
+    points = points.float()
+    p = points.shape[0]
+    ids = torch.arange(p, device=points.device)
+    parts = [_topk_rows_vs_all(points[s:s + block], ids[s:s + block],
+                               points, block, k)
+             for s in range(0, p, block)]
+    return (torch.cat([d for d, _ in parts]),
+            torch.cat([i for _, i in parts]))
 
 
 def _mean_sq_dist_3nn_exact(points: torch.Tensor, block: int):
     p = points.shape[0]
     ids = torch.arange(p, device=points.device)
     out = [_topk_rows_vs_all(points[s:s + block], ids[s:s + block], points,
-                             block).mean(dim=1)
+                             block)[0].mean(dim=1)
            for s in range(0, p, block)]
     return torch.cat(out) if out else points.new_zeros(0)
 
@@ -139,7 +164,7 @@ def _mean_sq_dist_3nn_large(points: torch.Tensor, block: int):
     if idx.numel():
         fixed = torch.cat([
             _topk_rows_vs_all(points[idx[s:s + 4096]], idx[s:s + 4096],
-                              points, block).mean(dim=1)
+                              points, block)[0].mean(dim=1)
             for s in range(0, idx.numel(), 4096)])
         mean3 = mean3.clone()
         mean3[idx] = fixed

@@ -162,10 +162,20 @@ def _slot_features(table, gid, dtype=torch.float32,
 def rasterize(means3d, scales, quats, opacities, shs, camera: CameraParams,
               sh_degree: int, bg, settings: RasterizeSettings, *,
               colors_precomp=None, cov3d_precomp=None,
-              scale_modifier: float = 1.0, alive=None) -> RasterizeOutput:
-    """Render Gaussians; differentiable unless ``settings.inference``."""
+              scale_modifier: float = 1.0, alive=None,
+              band_h: int | None = None, band_y0=0.0) -> RasterizeOutput:
+    """Render Gaussians; differentiable unless ``settings.inference``.
+
+    ``band_h`` / ``band_y0`` render only the horizontal band of ``band_h``
+    rows from pixel row ``band_y0`` (parallel/tileshard.py gives each rank
+    one). Preprocess is unchanged (a cropped camera would move the
+    1.3 * tan_fov clamp of computeCov2D, forward.cu:86-93); the band is a
+    pixel-space y-shift of the means between preprocess and binning, so
+    its pixels are the full render's rows up to float rounding. Radii,
+    ``is_used`` and ``num_dup`` are the band's."""
     s = settings
-    height, width = camera.height, camera.width
+    width = camera.width
+    height = camera.height if band_h is None else band_h
     grid_x = -(-width // s.tile_x)
     grid_y = -(-height // s.tile_y)
     num_tiles = grid_x * grid_y
@@ -175,6 +185,11 @@ def rasterize(means3d, scales, quats, opacities, shs, camera: CameraParams,
         means3d, scales, quats, opacities, shs, camera, sh_degree,
         colors_precomp=colors_precomp, cov3d_precomp=cov3d_precomp,
         scale_modifier=scale_modifier, alive=alive)
+    if band_h is not None:
+        y0 = torch.as_tensor(band_y0, dtype=proc.xy.dtype,
+                             device=proc.xy.device)
+        proc = proc._replace(
+            xy=proc.xy - torch.stack([torch.zeros_like(y0), y0])[None, :])
     # binning is integer bookkeeping: no gradient, except through the
     # feature table it reorders into depth-rank space
     proc_ng = project_lib.Preprocessed(*(t.detach() for t in proc))

@@ -7,7 +7,9 @@ gsplat_tpu/train/losses.py).
   JAX module's separable shifted adds and not as a convolution, so no
   cuDNN TF32 default enters;
 - ``psnr`` (utils/image_utils.py:14-19), with the trainer's
-  mean-of-per-channel-PSNR quirk behind ``channel_axis``.
+  mean-of-per-channel-PSNR quirk behind ``channel_axis``;
+- ``build_neighbor`` / ``arap_loss``: the as-rigid-as-possible
+  regulariser over a k-NN graph (utils/loss_utils.py:71-117).
 
 Images are [H, W, C] or channel-first [3, H, W].
 """
@@ -85,3 +87,26 @@ def ssim(img1, img2, window_size: int = 11):
     ssim_map = ((2 * mu1_mu2 + c1) * (2 * sigma12 + c2)) / (
         (mu1_sq + mu2_sq + c1) * (sigma1_sq + sigma2_sq + c2))
     return torch.mean(ssim_map)
+
+
+def build_neighbor(xyz, num_knn: int = 20, weight_coef: float = 2000.0):
+    """The k-NN graph for ARAP (reference build_neighbor,
+    loss_utils.py:83-101; the KDTree replaced by an exact blocked k-NN)."""
+    from gsplat_tpu_torch.model.knn import knn_indices
+
+    sq_dists, indices = knn_indices(xyz, k=num_knn)
+    return {"indices": indices, "dist": sq_dists,
+            "weight": torch.exp(-weight_coef * sq_dists)}
+
+
+def arap_loss(xyz, paras, indices, weight_coef: float = 2000.0):
+    """As-rigid-as-possible smoothness over a k-NN graph
+    (utils/loss_utils.py:103-117): per parameter field p, the mean over
+    points of sum over edges of exp(-coef |dx|^2) |dp|^2. Returns
+    [len(paras)] penalties."""
+    sq_dist = torch.sum((xyz[indices] - xyz[:, None]) ** 2, dim=-1)
+    weight = torch.exp(-weight_coef * sq_dist)
+    pens = [torch.mean(torch.sum(
+        weight * torch.sum((p[indices] - p[:, None]) ** 2, dim=-1), dim=-1))
+        for p in paras]
+    return torch.stack(pens)

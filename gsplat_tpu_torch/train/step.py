@@ -166,6 +166,23 @@ def make_densify_step(cap_max: int):
     return densify_step
 
 
+def make_densify_replay_step():
+    """Densify with injected draws (a replayed schedule, train/replay.py):
+    (state, adam_state, dead_mask [C], reloc_templates [C],
+    add_templates [C], target) -> (state, adam_state). JAX's factory takes
+    the capacity; here the templates come at the state's capacity."""
+
+    def densify_replay_step(state: GaussianState,
+                            adam_state: optim.AdamState, dead_mask,
+                            reloc_templates, add_templates, target: int):
+        state, adam_state = mcmc.relocate_gs_forced(
+            state, adam_state, dead_mask, reloc_templates)
+        return mcmc.add_new_gs_forced(state, adam_state, add_templates,
+                                      target)
+
+    return densify_replay_step
+
+
 def make_eval_step(settings: RasterizeSettings):
     """(state, camera, gt_image, bg, sh_degree) -> (clamped image, L1,
     mean per-channel PSNR), in ``settings.layout``."""

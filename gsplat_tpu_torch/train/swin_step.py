@@ -23,7 +23,7 @@ import torch
 
 from gsplat_tpu_torch.core.camera import CameraParams
 from gsplat_tpu_torch.model import optim, swin
-from gsplat_tpu_torch.model.swin import SwinState
+from gsplat_tpu_torch.model.swin import RIGID_KEYS, SwinState
 from gsplat_tpu_torch.raster.rasterize import RasterizeSettings, rasterize
 from gsplat_tpu_torch.train import losses
 from gsplat_tpu_torch.train.config import OptimizationConfig
@@ -73,14 +73,22 @@ def swin_loss(opt: OptimizationConfig, settings: RasterizeSettings,
 
 
 def _loss_and_grads(opt, settings, state: SwinState, camera, gt_image, bg,
-                    frame: float, sh_degree: int):
+                    frame: float, sh_degree: int, arap=None):
     """(grads keyed like ``state.params()``, SwinMetrics). A leaf the loss
     does not reach (the rigid ones without ``deform``) gets zeros, as
-    jax.grad gives."""
+    jax.grad gives. ``arap`` = (weights (w_v, w_rotvec, w_rotcen),
+    neighbour ids [C, K]) adds the ARAP penalties of the rigid-motion
+    fields over the immature k-NN graph (positions not differentiated)."""
     params = {k: v.detach().requires_grad_(True)
               for k, v in state.params().items()}
     loss, (ll1, num_dup, img, n_active) = swin_loss(
         opt, settings, state, params, camera, gt_image, bg, frame, sh_degree)
+    if arap is not None:
+        weights, nbr = arap
+        pens = losses.arap_loss(params["xyz"].detach(),
+                                [params[k] for k in RIGID_KEYS], nbr)
+        loss = loss + torch.sum(pens * torch.tensor(
+            weights, dtype=torch.float32, device=pens.device))
     grads = torch.autograd.grad(loss, list(params.values()),
                                 allow_unused=True)
     grads = {k: torch.zeros_like(p) if g is None else g
@@ -96,18 +104,26 @@ def _loss_and_grads(opt, settings, state: SwinState, camera, gt_image, bg,
 
 def make_swin_train_step(opt: OptimizationConfig,
                          settings: RasterizeSettings,
-                         spatial_lr_scale: float):
+                         spatial_lr_scale: float, arap_weights=None):
     """The fused step: (state, adam, gen, camera, gt_image [3, H, W], bg,
-    iteration, frame, sh_degree[, raw_noise]) -> (state, adam,
-    SwinMetrics)."""
+    iteration, frame, sh_degree[, raw_noise][, nbr_indices]) -> (state,
+    adam, SwinMetrics).
+
+    ``arap_weights`` (w_v, w_rotvec, w_rotcen) turns on the ARAP rigidity
+    regulariser over the immature k-NN graph (the reference ships it gated
+    off, train_swin.py:34,183-200); the step then adds it whenever it is
+    given ``nbr_indices`` [C, K] (rebuilt periodically by the caller)."""
     settings = dataclasses.replace(settings, layout="chw")
 
     def swin_train_step(state: SwinState, adam: optim.AdamState,
                         gen: torch.Generator | None, camera: CameraParams,
                         gt_image, bg, iteration: float, frame: float,
-                        sh_degree: int, raw_noise=None):
+                        sh_degree: int, raw_noise=None, nbr_indices=None):
+        arap = (None if arap_weights is None or nbr_indices is None
+                else (arap_weights, nbr_indices))
         grads, metrics = _loss_and_grads(opt, settings, state, camera,
-                                         gt_image, bg, frame, sh_degree)
+                                         gt_image, bg, frame, sh_degree,
+                                         arap=arap)
         xyz_lr, lrs = swin_learning_rates(opt, spatial_lr_scale, iteration)
         new_params, adam = optim.step(state.params(), grads, adam, lrs)
         state = swin.inject_noise_active(state.replace_params(new_params),

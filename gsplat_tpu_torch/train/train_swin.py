@@ -1,25 +1,34 @@
 """Sliding-window (SwinGS) dynamic-scene training entry point (port of
-gsplat_tpu/train/train_swin.py, the single-device loop).
+gsplat_tpu/train/train_swin.py).
 
 The reference train_swin.py:275-380 / train_slide_window (:118-273): a
 genesis pass over the first window, opacity-ranked lifespan staggering
 (decay_genesis), then per tick: evolve (mature into the frozen ring,
 stream the matured rows to disk, roll them over) and train the window;
 finally mature the remainder. Frames are the reader's rebased frames.
+Also:
 
-Not in this slice of the port (each raises NotImplementedError):
---data_parallel above 1, --enable_arap, --start_checkpoint and
---checkpoint_iterations.
+- checkpoints of the whole SwinState, its Adam state and the window
+  (--checkpoint_iterations -> chkpnt_<frame_start>_<it>.npz in the JAX
+  package's pytree layout, --start_checkpoint);
+- --enable_arap: the ARAP rigidity regulariser over the immature k-NN
+  graph (rebuilt every densification_interval), with the fused step kept
+  on densification iterations, as the JAX trainer does;
+- --data_parallel N: one window (camera, frame) sample per rank,
+  gradients averaged (parallel/swin_dp.py); the command starts its ranks
+  itself or runs as one rank under torchrun, and only rank 0 writes files.
 
 Usage:
   python -m gsplat_tpu_torch.train.train_swin -s <swings_dataset> -m <out> \
-      --cap_max N --swin_size 10 [--deform] [--first_frame_only]
+      --cap_max N --swin_size 10 [--deform] [--first_frame_only] \
+      [--enable_arap] [--data_parallel N]
 """
 
 from __future__ import annotations
 
 import argparse
 import dataclasses
+import math
 import os
 import random
 import time
@@ -30,37 +39,47 @@ import torch
 from gsplat_tpu_torch import get_device
 from gsplat_tpu_torch.data.scene import MAX_FRAME_IN_MEMORY, DynamicScene
 from gsplat_tpu_torch.model import gaussians, optim, swin
+from gsplat_tpu_torch.model.knn import knn_indices
+from gsplat_tpu_torch.parallel import launch
+from gsplat_tpu_torch.parallel import mesh as mesh_lib
+from gsplat_tpu_torch.parallel.dp import own_sample
+from gsplat_tpu_torch.parallel.swin_dp import (make_dp_swin_densify_step,
+                                               make_dp_swin_train_step)
 from gsplat_tpu_torch.train import swin_step as sstep
 from gsplat_tpu_torch.train.config import (ModelConfig, OptimizationConfig,
                                            PipelineConfig, add_config_args,
                                            extract_config, save_cfg_args)
 from gsplat_tpu_torch.train.train_static import _chw, make_settings
+from gsplat_tpu_torch.utils import checkpoint as ckpt_lib
 from gsplat_tpu_torch.utils import debug as debug_lib
 from gsplat_tpu_torch.utils.stream import SliWinManager, stream_dump
 
 
 def evolve(state: swin.SwinState, adam, swin_mgr: SliWinManager,
-           dump_path: str, sh_degree: int):
-    """Stream the rows that cannot fill the next window to disk, then copy
-    them into the ring and roll them over (gaussian_model.py:530-548)."""
+           dump_path: str | None, sh_degree: int):
+    """Stream the rows that cannot fill the next window to disk (unless
+    ``dump_path`` is None: ranks other than 0), then copy them into the
+    ring and roll them over (gaussian_model.py:530-548)."""
     mask = swin.mature_mask(state, float(swin_mgr.frame_end))
-    rows = swin.extract_rows_host(state, mask)
-    n = rows["start_frame"].shape[0]
-    if n:
-        stream_dump(rows, dump_path, sh_degree)
-        print(f"Matured {n} gaussians -> {dump_path}")
+    if dump_path is not None:
+        rows = swin.extract_rows_host(state, mask)
+        n = rows["start_frame"].shape[0]
+        if n:
+            stream_dump(rows, dump_path, sh_degree)
+            print(f"Matured {n} gaussians -> {dump_path}")
     return swin.mature_and_rollover(state, adam, mask)
 
 
-def mature_rest(state: swin.SwinState, adam, dump_path: str,
+def mature_rest(state: swin.SwinState, adam, dump_path: str | None,
                 sh_degree: int):
     """Mature every remaining immature Gaussian (gaussian_model.py:
     551-555)."""
     mask = state.im.alive_mask & (state.frame_start >= 0)
-    rows = swin.extract_rows_host(state, mask)
-    if rows["start_frame"].shape[0]:
-        stream_dump(rows, dump_path, sh_degree)
-        print(f"Matured rest: {rows['start_frame'].shape[0]} gaussians")
+    if dump_path is not None:
+        rows = swin.extract_rows_host(state, mask)
+        if rows["start_frame"].shape[0]:
+            stream_dump(rows, dump_path, sh_degree)
+            print(f"Matured rest: {rows['start_frame'].shape[0]} gaussians")
     return swin.mature_and_rollover(state, adam, mask)
 
 
@@ -105,17 +124,31 @@ def densify_due(opt: OptimizationConfig, it: int, genesis: bool) -> bool:
 def train_slide_window(state, adam, scene: DynamicScene,
                        swin_mgr: SliWinManager, box: StepBox, model_cfg,
                        opt, args, bg, gen: torch.Generator, genesis: bool,
-                       first_iter: int = 0, tb_writer=None):
-    """Train the current window; returns (state, adam)."""
+                       first_iter: int = 0, tb_writer=None, mesh=None):
+    """Train the current window; returns (state, adam). With ``mesh`` this
+    is one rank of a --data_parallel job."""
     total = opt.iterations
     if opt.genesis_iterations > 0 and genesis:
         total = opt.genesis_iterations
     viewpoint_stack: list = []
     device = bg.device
+    rank0 = mesh is None or torch.distributed.get_rank() == 0
+    n_dp = 1 if mesh is None else mesh.shape["dp"]
+    enable_arap = getattr(args, "enable_arap", False) and mesh is None
+    nbr_indices = None
     # decode this window's frames and the one entering at the next tick on
     # the prefetch threads while the steps below run
     scene.prefetch_train_frames(
         list(swin_mgr.sampled_frames()) + [swin_mgr.frame_end])
+
+    def draw():
+        nonlocal viewpoint_stack
+        if not viewpoint_stack:
+            viewpoint_stack = list(scene.get_train_cams_at(
+                swin_mgr.sampled_frames()))
+            random.shuffle(viewpoint_stack)
+        return viewpoint_stack.pop()
+
     t_start = time.time()
     m = None
     for it in range(first_iter + 1, total + 1):
@@ -124,39 +157,69 @@ def train_slide_window(state, adam, scene: DynamicScene,
             print(f"debug: anomaly detection armed at iteration {it}")
         sh_degree = (min(it // 1000, model_cfg.sh_degree) if genesis
                      else model_cfg.sh_degree)
-        if not viewpoint_stack:
-            viewpoint_stack = list(scene.get_train_cams_at(
-                swin_mgr.sampled_frames()))
-            random.shuffle(viewpoint_stack)
-        cam_obj = viewpoint_stack.pop()
-        camera, gt = cam_obj.load()
-        gt_dev = _chw(gt, device)
-        frame = float(cam_obj.frame)
-        if densify_due(opt, it, genesis):
-            # backward -> densify -> optimizer.step, with the Adam update
-            # always skipped (see swin_step.make_swin_grad_step)
-            _, m = box.grad(state, camera, gt_dev, bg, frame, sh_degree)
-            state, adam = box.densify(state, adam, gen,
-                                      float(swin_mgr.frame_start), genesis)
-            state, adam = box.apply(state, adam, None, gen, float(it), frame,
-                                    False)
+        if enable_arap and (nbr_indices is None
+                            or it % opt.densification_interval == 0):
+            nbr_indices = knn_indices(state.im.xyz, k=20)[1]
+        densify_now = densify_due(opt, it, genesis)
+        if mesh is not None:
+            # every rank draws the whole batch in the same order and takes
+            # its own sample; the noise gates on the first sample's frame
+            batch = [draw() for _ in range(n_dp)]
+            cam_obj = own_sample(batch, mesh)
+            camera, gt = cam_obj.load()
+            state, adam, m = box.train(
+                state, adam, gen, camera, _chw(gt, device),
+                float(cam_obj.frame), float(batch[0].frame), bg, float(it),
+                sh_degree)
+            if densify_now:
+                state, adam = box.densify(state, adam, gen,
+                                          float(swin_mgr.frame_start),
+                                          genesis)
         else:
-            state, adam, m = box.train(state, adam, gen, camera, gt_dev, bg,
-                                       float(it), frame, sh_degree)
+            cam_obj = draw()
+            camera, gt = cam_obj.load()
+            gt_dev = _chw(gt, device)
+            frame = float(cam_obj.frame)
+            if densify_now and not enable_arap:
+                # backward -> densify -> optimizer.step, with the Adam
+                # update always skipped (see swin_step.make_swin_grad_step)
+                _, m = box.grad(state, camera, gt_dev, bg, frame, sh_degree)
+                state, adam = box.densify(state, adam, gen,
+                                          float(swin_mgr.frame_start),
+                                          genesis)
+                state, adam = box.apply(state, adam, None, gen, float(it),
+                                        frame, False)
+            else:
+                state, adam, m = box.train(state, adam, gen, camera, gt_dev,
+                                           bg, float(it), frame, sh_degree,
+                                           nbr_indices=nbr_indices)
+                if densify_now:
+                    # ARAP keeps the fused step (the split step has no
+                    # ARAP term; the reference ships ARAP gated off)
+                    state, adam = box.densify(state, adam, gen,
+                                              float(swin_mgr.frame_start),
+                                              genesis)
 
         if it % 10 == 0:
-            debug_lib.check_finite_loss(
-                float(m.loss), it, model_cfg.model_path,
-                params=state.params(), adam=adam,
-                window=(swin_mgr.frame_start, swin_mgr.frame_end))
+            # the metrics are reduced over the ranks (num_dup by MAX), so
+            # every rank grows the budget with the others
+            loss = float(m.loss)
+            if rank0:
+                debug_lib.check_finite_loss(
+                    loss, it, model_cfg.model_path, params=state.params(),
+                    adam=adam,
+                    window=(swin_mgr.frame_start, swin_mgr.frame_end))
+            elif not math.isfinite(loss):
+                raise RuntimeError(f"non-finite loss ({loss}) at iteration "
+                                   f"{it}")
             num_dup = int(m.num_dup)
             args._dup_high_water = max(getattr(args, "_dup_high_water", 0),
                                        num_dup)
             if box.maybe_grow(num_dup, box.settings.chunk):
                 args._dup_budget = box.settings.k_dup
             if tb_writer:
-                tb_writer.add_scalar("train_loss_patches/total_loss",
-                                     float(m.loss), it)
+                tb_writer.add_scalar("train_loss_patches/total_loss", loss,
+                                     it)
 
         if it % 100 == 0:
             dt = (time.time() - t_start) / 100
@@ -168,17 +231,25 @@ def train_slide_window(state, adam, scene: DynamicScene,
             if tb_writer:
                 tb_writer.add_scalar("iter_time", dt * 1000, it)
 
-        if it in args.test_iterations:
+        if rank0 and it in args.test_iterations:
             _eval_report(state, scene, swin_mgr, box.eval, bg,
                          model_cfg.sh_degree, it, model_cfg.model_path,
                          tb_writer=tb_writer,
                          log_gt=it == min(args.test_iterations))
 
-        if it in args.save_iterations:
+        if rank0 and it in args.save_iterations:
             gaussians.save_ply(
                 state.im, os.path.join(
                     model_cfg.model_path,
                     f"point_cloud/iteration_{it}/point_cloud.ply"))
+
+        if rank0 and it in args.checkpoint_iterations:
+            path = os.path.join(model_cfg.model_path,
+                                f"chkpnt_{swin_mgr.frame_start}_{it}.npz")
+            ckpt_lib.save_pytree(path, {"state": state, "adam": adam},
+                                 meta={"iteration": it,
+                                       "swin": swin_mgr.state_dump()})
+            print(f"saved checkpoint {path}")
     return state, adam
 
 
@@ -234,48 +305,60 @@ def _eval_report(state, scene, swin_mgr, eval_step, bg, sh_degree, it,
         tb_writer.add_scalar("total_points", state.im.n_alive, it)
 
 
-def _unsupported(args) -> list[str]:
-    """The CLI options that later slices of the port bring."""
-    out = []
-    if getattr(args, "data_parallel", 1) > 1:
-        out.append("--data_parallel")
-    for name in ("enable_arap", "start_checkpoint", "checkpoint_iterations"):
-        if getattr(args, name, None):
-            out.append("--" + name)
-    return out
-
-
 def training(model_cfg: ModelConfig, opt: OptimizationConfig,
              pipe: PipelineConfig, args) -> swin.SwinState:
-    missing = _unsupported(args)
-    if missing:
-        raise NotImplementedError(
-            f"gsplat_tpu_torch trains SwinGS on one device without ARAP or "
-            f"checkpoints; {', '.join(missing)} come with later slices of "
-            f"the port")
-    device = get_device(model_cfg.data_device)
-    os.makedirs(model_cfg.model_path, exist_ok=True)
-    save_cfg_args(model_cfg.model_path, args)
-    dump_path = os.path.join(model_cfg.model_path, "streamable.dat")
-    if os.path.exists(dump_path):
-        os.remove(dump_path)
-    print(f"Streamable dump path: {dump_path}")
+    """Train; with --data_parallel above 1 on that many ranks
+    (parallel/launch.py), returning rank 0's state."""
+    n_dp = getattr(args, "data_parallel", 1)
+    if n_dp == 1:
+        return _training(model_cfg, opt, pipe, args, None)
+    return launch.run(_rank_training, n_dp, model_cfg.data_device,
+                      (model_cfg, opt, pipe, args))
 
-    scene = DynamicScene(model_cfg.source_path, model_cfg.model_path,
-                         eval_split=model_cfg.eval,
-                         resolution=model_cfg.resolution,
-                         init_type=model_cfg.init_type,
-                         num_pts=model_cfg.init_pts,
-                         max_frame=model_cfg.max_frame,
-                         min_frame=model_cfg.min_frame, device=device)
+
+def _rank_training(model_cfg, opt, pipe, args) -> swin.SwinState:
+    """One rank of a --data_parallel job."""
+    device = launch.rank_device(model_cfg.data_device,
+                                torch.distributed.get_rank(),
+                                torch.distributed.get_backend())
+    mesh = mesh_lib.make_mesh(args.data_parallel, device=device)
+    print(f"data-parallel SwinGS training over {args.data_parallel} ranks")
+    return _training(model_cfg, opt, pipe, args, mesh)
+
+
+def _training(model_cfg, opt, pipe, args, mesh) -> swin.SwinState:
+    device = get_device(model_cfg.data_device) if mesh is None \
+        else mesh.device
+    rank0 = mesh is None or torch.distributed.get_rank() == 0
+    dump_path = os.path.join(model_cfg.model_path, "streamable.dat")
+    if rank0:
+        os.makedirs(model_cfg.model_path, exist_ok=True)
+        save_cfg_args(model_cfg.model_path, args)
+        if os.path.exists(dump_path):
+            os.remove(dump_path)
+        print(f"Streamable dump path: {dump_path}")
+
+    def load():
+        return DynamicScene(model_cfg.source_path,
+                            model_cfg.model_path if rank0 else "",
+                            eval_split=model_cfg.eval,
+                            resolution=model_cfg.resolution,
+                            init_type=model_cfg.init_type,
+                            num_pts=model_cfg.init_pts,
+                            max_frame=model_cfg.max_frame,
+                            min_frame=model_cfg.min_frame, device=device)
+
+    # the reader may write a PLY beside the dataset: ranks read in turn
+    scene = load() if mesh is None else mesh_lib.in_turn(load)
     try:
-        return _train_windows(scene, model_cfg, opt, pipe, args, dump_path,
-                              device)
+        return _train_windows(scene, model_cfg, opt, pipe, args,
+                              dump_path if rank0 else None, device, mesh)
     finally:
         scene.close()
 
 
-def _train_windows(scene, model_cfg, opt, pipe, args, dump_path, device):
+def _train_windows(scene, model_cfg, opt, pipe, args, dump_path, device,
+                   mesh):
     swin_mgr = SliWinManager(args.swin_size, scene.num_frames,
                              MAX_FRAME_IN_MEMORY)
     capacity = model_cfg.cap_max
@@ -284,28 +367,51 @@ def _train_windows(scene, model_cfg, opt, pipe, args, dump_path, device):
         scene.info.points[:n_init], scene.info.colors[:n_init], capacity,
         model_cfg.sh_degree, max_lifespan=args.swin_size,
         buffer_size=capacity, deform=args.deform, device=device)
+    if mesh is not None:
+        # the replicated state starts from rank 0's (a random init draws
+        # from each process's own numpy stream)
+        mesh_lib.sync_replicas(mesh, ("dp",), state)
     adam = optim.init(state.params())
+
+    first_iter = 0
+    if args.start_checkpoint:
+        tree, meta = ckpt_lib.load_pytree(args.start_checkpoint,
+                                          {"state": state, "adam": adam})
+        state, adam = tree["state"], tree["adam"]
+        swin_mgr.state_load(meta["swin"])
+        first_iter = meta["iteration"]
+        print(f"Checkpoint {first_iter} of {swin_mgr} loaded")
 
     # the union table has 2 x capacity rows
     settings = make_settings(pipe, 2 * capacity)
     args._dup_high_water = 0
     args._dup_budget = settings.k_dup
+    arap_w = (0.1, 0.1, 0.1) if getattr(args, "enable_arap", False) \
+        else None
 
     def build_steps(s):
-        return (sstep.make_swin_train_step(opt, s, scene.cameras_extent),
-                sstep.make_swin_densify_step(capacity, args.swin_size),
-                sstep.make_swin_eval_step(s),
+        if mesh is not None:
+            step = make_dp_swin_train_step(mesh, opt, s,
+                                           scene.cameras_extent)
+        else:
+            step = sstep.make_swin_train_step(opt, s, scene.cameras_extent,
+                                              arap_weights=arap_w)
+        densify = (sstep.make_swin_densify_step(capacity, args.swin_size)
+                   if mesh is None else make_dp_swin_densify_step(
+                       mesh, capacity, args.swin_size))
+        return (step, densify, sstep.make_swin_eval_step(s),
                 sstep.make_swin_grad_step(opt, s, scene.cameras_extent),
                 sstep.make_swin_apply_step(opt, scene.cameras_extent))
 
     box = StepBox(build_steps, settings)
-    try:
-        from torch.utils.tensorboard import SummaryWriter
+    tb_writer = None
+    if dump_path is not None:
+        try:
+            from torch.utils.tensorboard import SummaryWriter
 
-        tb_writer = SummaryWriter(model_cfg.model_path)
-    except ImportError:
-        print("Tensorboard not available: not logging progress")
-        tb_writer = None
+            tb_writer = SummaryWriter(model_cfg.model_path)
+        except ImportError:
+            print("Tensorboard not available: not logging progress")
     bg = torch.tensor([1.0, 1.0, 1.0] if model_cfg.white_background
                       else [0.0, 0.0, 0.0], device=device)
     gen = torch.Generator(device=device)
@@ -314,7 +420,8 @@ def _train_windows(scene, model_cfg, opt, pipe, args, dump_path, device):
     genesis = swin_mgr.frame_start == 0
     state, adam = train_slide_window(state, adam, scene, swin_mgr, box,
                                      model_cfg, opt, args, bg, gen,
-                                     genesis=genesis, tb_writer=tb_writer)
+                                     genesis=genesis, first_iter=first_iter,
+                                     tb_writer=tb_writer, mesh=mesh)
     if args.first_frame_only:
         state, adam = mature_rest(state, adam, dump_path,
                                   model_cfg.sh_degree)
@@ -328,7 +435,8 @@ def _train_windows(scene, model_cfg, opt, pipe, args, dump_path, device):
                              model_cfg.sh_degree)
         state, adam = train_slide_window(state, adam, scene, swin_mgr, box,
                                          model_cfg, opt, args, bg, gen,
-                                         genesis=False, tb_writer=tb_writer)
+                                         genesis=False, tb_writer=tb_writer,
+                                         mesh=mesh)
         print(f"retiring frame #{swin_mgr.frame_start}")
         swin_mgr.tick()
 
@@ -355,11 +463,12 @@ def main(argv=None):
     parser.add_argument("--first_frame_only", action="store_true")
     parser.add_argument("--deform", action="store_true")
     parser.add_argument("--enable_arap", action="store_true",
-                        help="ARAP rigidity regulariser (not in the port "
-                             "yet)")
+                        help="ARAP rigidity regulariser over the immature "
+                             "k-NN graph (the reference ships it gated off)")
     parser.add_argument("--data_parallel", type=int, default=1,
-                        help="camera-batch data parallelism (not in the "
-                             "port yet)")
+                        help="camera-batch data parallelism: one window "
+                             "(camera, frame) sample per rank, gradients "
+                             "averaged over the ranks")
     args = parser.parse_args(argv)
     args.save_iterations.append(args.iterations)
 

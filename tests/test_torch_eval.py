@@ -394,7 +394,11 @@ def test_full_eval_jobs_match_jax(monkeypatch, flags):
     for kind, argv, *_ in got:
         if kind == "train":
             ttrain.main(argv)
-            assert ttrain._unsupported(seen[-1]) == []
+            a = seen[-1]
+            # full_eval's train jobs run on one device from scratch
+            assert (a.data_parallel, a.pshard, a.replay_rng,
+                    a.start_checkpoint, a.profile_iterations,
+                    a.checkpoint_iterations) == (1, 1, None, None, None, [])
         elif kind == "render":
             trender.main(argv)
 
@@ -418,9 +422,9 @@ def test_eval_entries_need_a_card_unless_told(rendered, tmp_path):
     with pytest.raises(RuntimeError, match="CUDA"):
         tfull.main(["-tat", str(tmp_path)])
     for flag in ("--pshard", "--tileshard"):
-        with pytest.raises(NotImplementedError, match="parallel slice"):
+        with pytest.raises(RuntimeError, match="CUDA"):
             trender.main(["-s", dataset, "-m", model, "--cap_max", str(CAP),
-                          "--data_device", "cpu", flag, "2"])
+                          flag, "2"])
     assert tconfig.ModelConfig().data_device == "cuda"
 
 
