@@ -45,7 +45,8 @@ the result line is printed:
                alone, bound_all_pairs_ms every pair of the visited chunks)
                and the share of (warp block / sub-block, slot) pairs its
                cull keeps; and
-               multi_cummax (on no path) bit-equal to torch.cummax at
+               multi_cummax held alone (its main-path input is checked
+               in the determinism phase) bit-equal to torch.cummax at
                3 x 8M, one launch a call, two launches bit-equal,
                beside torch.cummax's time
   small        a 300-Gaussian scene rendered on the card vs the port on
@@ -82,7 +83,8 @@ the result line is printed:
                fused steps (20 / 10), counts read and held to one blend
                forward, one blend backward and one merge_expand per step
                (multi_cumsum one per step at 1M, none at 100k); then one
-               untimed split densify iteration
+               untimed split densify iteration, counts zeroed: the step's
+               kernels and one multi_cumsum a template draw (two)
   cli          python -m gsplat_tpu_torch.train.train_static on the
                committed Blender fixture (300 iterations), held-out PSNR
                >= 21.0 dB
@@ -105,14 +107,32 @@ the result line is printed:
                forward, blend backward, merge_expand and multi_cumsum a
                step and nothing else
   swin_slide   decay_genesis -> tick -> evolve (ring + stream_dump +
-               rollover) -> densify -> one window of steps in the new
-               window; matured rows active and rendered, records = matured
+               rollover) -> densify (counts zeroed: one multi_cumsum a
+               window frame and one for growth, nothing else) -> one
+               window of steps in the new window; matured rows active and
+               rendered, records = matured
+  determinism  per training setting (train-100k, train-1m, swin-200k) at
+               full width, n_alive cut to 95% of the rows and every 100th
+               alive row dead: 3 steps, one densification (relocation and
+               growth; SwinGS over the window) and 2 steps from one seeded
+               generator, twice: every state and Adam leaf, n_alive and
+               every draw's templates bit-equal, no zero-probability
+               template drawn, launch counts (one multi_cumsum and one
+               multi_cummax a draw); on the relocation's own
+               probabilities the bit patterns of 4 torch.cumsum and 4
+               multi_cumsum calls, multi_cummax on the CDF's bits against
+               plain and twice bit-equal (the kernels line's multi_cummax
+               entry at 1M), the raw CDFs' steps at zero rows and tile
+               joins, densification wall ms (median of 3) beside a
+               torch.cumsum CDF's; at 100k the scatter-add reduction twice
+               bit-equal
   resume       bench.py's 100k setting driven as --replay_rng drives the
                trainer (a schedule written here: cameras, noise, three
                relocations), 20 steps with a checkpoint at 10, the
                checkpoint loaded and the run resumed: the checkpoint
-               round-trips bit-equal, resumed losses within rel 1e-5;
-               counts zeroed before it
+               round-trips bit-equal, the resumed losses, final state and
+               Adam moments bit-equal to the uninterrupted run's; counts
+               zeroed before it
   replay       python -m gsplat_tpu_torch.train.train_static --replay_rng
                on the committed Blender fixture, on the card (launch
                counts of that process) and on the port's CPU path:
@@ -129,9 +149,11 @@ the result line is printed:
                train-1m, swin-dp at the swin setting, a tileshard render
                of the eval model at 1237x822 (two bands), each held
                against the single-device path on the card (dp / swin-dp
-               loss rel 1e-5 and params 2e-4, bit-equal across ranks;
-               pshard and dp x ps loss rel 5e-3; tileshard 2e-5), launch
-               counts per rank and step, and on rank 0 every kernel of
+               loss rel 1e-5 and params 2e-4; pshard and dp x ps loss rel
+               5e-3; tileshard 2e-5); each training mode densifies after
+               its second step with no broadcast, and the ranks' digests
+               of the densified state and moments are equal; launch
+               counts per rank and mode, and on rank 0 every kernel of
                the mode against its plain version on that mode's inputs
                (the kernel phase's gates); step times are of ranks
                sharing one card, not a scaling figure
@@ -146,6 +168,10 @@ the result line is printed:
   train_profile  the same for 3 training steps per setting
   swin_profile   the same for 3 swin steps
   cummax_profile multi_cummax's own device time beside its event time
+  determinism_profile  device ms of multi_cumsum, torch.cumsum,
+               multi_cummax and torch.cummax on each setting's [1, C]
+               relocation probabilities; of the 100k step's reduction by
+               index_put_, index_add_ and sort + multi_cumsum
 
 Then the card's name and power limit (nvidia-smi), the kernels line and
 {"ok": true, "device": {...}} as the last line. Exits non-zero with no
@@ -608,8 +634,9 @@ CUMMAX_SHAPE = (3, 8_000_000)
 
 
 def cummax_input():
-    """multi_cummax's input (the kernel is on no path of the system): n =
-    3, K = 8M int32 drawn from numpy's generator at seed 0, INT_MIN in a
+    """multi_cummax's input when held alone (its main-path input, the
+    template CDF's bits, is checked in the determinism phase): n = 3, K =
+    8M int32 drawn from numpy's generator at seed 0, INT_MIN in a
     prefix of row 0 (the TPU wrapper's padding value)."""
     import torch
 
@@ -625,19 +652,24 @@ def device_ms(fn, reps, names):
     name holds one of ``names`` (torch.profiler's CUDA activity): the
     kernels alone, without the host time of the call, which bounds event
     times of a few microseconds. A profiler session slows the host for the
-    rest of the process: call it after every wall-clock timing."""
+    rest of the process: call it after every wall-clock timing. A session
+    that records no such kernel (seen once on the card for a kernel that
+    did run) is repeated, twice at most; then None ("not measured")."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
-    total = sum(e.self_device_time_total for e in prof.key_averages()
-                if any(n in e.key for n in names))
-    return total / 1e3 / reps
+    for _ in range(3):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        total = sum(e.self_device_time_total for e in prof.key_averages()
+                    if any(n in e.key for n in names))
+        if total:
+            return total / 1e3 / reps
+    return None
 
 
 def check_multi_cummax(card_name):
@@ -1460,7 +1492,8 @@ def train_small(card_name):
 def train_setting(name, st, wrappers, card_name):
     """The setting's main path: counts zeroed, one warm step and 3 timed
     windows of fused steps, counts read; then one untimed split densify
-    iteration. Returns (launches, ms per step, losses)."""
+    iteration, its counts read on their own. Returns (launches of both,
+    ms per step, state, adam)."""
     import torch
 
     from gsplat_tpu_torch.model import optim
@@ -1507,9 +1540,14 @@ def train_setting(name, st, wrappers, card_name):
     if max_dup > settings.k_dup:
         raise AssertionError(f"{name}: num_dup {max_dup} > {settings.k_dup}")
 
-    # one untimed split densify iteration (grad -> densify -> Adam + noise)
+    # one untimed split densify iteration (grad -> densify -> Adam +
+    # noise), counts zeroed before it: the step's kernels and one
+    # multi_cumsum and one multi_cummax a template draw (relocation and
+    # growth)
     dead = int((state.alive_mask & (state.get_opacity()[:, 0] <= 0.005)
                 ).sum())
+    for w in wrappers.values():
+        w.launches = 0
     grads, _ = step_lib.make_grad_step(opt, settings, 4.0)(
         state, cams[0], gts[0], bg, SH_DEGREE)
     n_before = state.n_alive
@@ -1518,6 +1556,13 @@ def train_setting(name, st, wrappers, card_name):
     state, adam = step_lib.make_apply_step(opt, 4.0)(
         state, adam, grads, gen, float(it + 2), dead == 0)
     torch.cuda.synchronize()
+    dens = {k: w.launches for k, w in wrappers.items()}
+    want = {k: 0 for k in wrappers}
+    want.update(tile_blend_forward=1, tile_blend_backward=1, merge_expand=1,
+                multi_cumsum=3 if segsum else 2, multi_cummax=2)
+    if dens != want:
+        raise AssertionError(f"{name} densify iteration: launches {dens}, "
+                             f"expected {want}")
     if segsum and dead == 0:
         raise AssertionError(f"{name}: relocation moved no rows")
     log("train", card=card_name, setting=name, steps=steps,
@@ -1526,9 +1571,10 @@ def train_setting(name, st, wrappers, card_name):
         max_num_dup=max_dup, k_dup=settings.k_dup,
         launches_per_step={k: v / steps for k, v in launches.items()},
         densify_relocated=dead, n_alive_before=n_before,
-        n_alive_after=state.n_alive,
+        n_alive_after=state.n_alive, densify_iteration_launches=dens,
         peak_mem_gib=torch.cuda.max_memory_allocated() / 2 ** 30)
-    return launches, statistics.median(ms), state, adam
+    return ({k: v + dens[k] for k, v in launches.items()},
+            statistics.median(ms), state, adam)
 
 
 def profile_steps(phase, setting, run, step_ms, card_name, n=3):
@@ -2085,9 +2131,10 @@ def swin_train(st, wrappers, card_name):
 def swin_slide(st, state, adam, gen, wrappers, card_name):
     """decay_genesis -> tick -> evolve (mature into the ring, stream_dump,
     rollover) -> one densify (relocation over the window's 8 frames and
-    the genesis growth) -> one window of steps in the new window, counts
-    zeroed before it; then a render of the union at the new window's first
-    frame with the ring in it."""
+    the genesis growth; one multi_cumsum a draw, nothing else) -> one
+    window of steps in the new window, counts zeroed before each of the
+    two; then a render of the union at the new window's first frame with
+    the ring in it."""
     import torch
 
     from gsplat_tpu_torch import renderer
@@ -2121,11 +2168,21 @@ def swin_slide(st, state, adam, gen, wrappers, card_name):
     if ring_active[0] == 0:
         raise AssertionError(f"swin_slide: no matured row is active at "
                              f"frame {frames[0]}: {ring_active}")
+    for w in wrappers.values():
+        w.launches = 0
     t0 = time.perf_counter()
     state, adam = swin_step.make_swin_densify_step(cap, SWIN["lifespan"])(
         state, adam, gen, float(mgr.frame_start), True)
     torch.cuda.synchronize()
     densify_ms = (time.perf_counter() - t0) * 1e3
+    dens = {k: w.launches for k, w in wrappers.items()}
+    # one multi_cumsum and one multi_cummax a template draw: a window
+    # frame each, then growth
+    want = {k: 0 for k in wrappers}
+    want["multi_cumsum"] = want["multi_cummax"] = SWIN["lifespan"] + 1
+    if dens != want:
+        raise AssertionError(f"swin_slide densify: launches {dens}, "
+                             f"expected {want}")
     step = swin_step.make_swin_train_step(OptimizationConfig(),
                                           st["settings"], 4.0)
     for w in wrappers.values():
@@ -2150,9 +2207,10 @@ def swin_slide(st, state, adam, gen, wrappers, card_name):
         matured=state.m_count, stream_records=records,
         ring_active_per_frame=dict(zip(frames, ring_active)),
         ring_rows_rendered=ring_used, evolve_ms=evolve_ms,
-        densify_ms=densify_ms, immature_after=state.im.n_alive,
-        steps=steps, ms_per_step=ms, losses=losses, max_num_dup=max_dup)
-    return launches
+        densify_ms=densify_ms, densify_launches=dens,
+        immature_after=state.im.n_alive, steps=steps, ms_per_step=ms,
+        losses=losses, max_num_dup=max_dup)
+    return {k: v + dens[k] for k, v in launches.items()}
 
 
 def swin_cli(wrappers, card_name):
@@ -2258,6 +2316,348 @@ def profile_swin(st, state, adam, gen, step_ms, card_name):
     profile_steps("swin_profile", SWIN_NAME, run, step_ms, card_name)
 
 
+# ---------------------------------------------------------- determinism ----
+
+# per setting: fused steps before and after the one densification; the
+# share of the rows left alive (growth fills them) and the stride of the
+# alive rows whose opacity is set below the relocation threshold
+DETERMINISM = dict(before=3, after=2, alive=0.95, dead_every=100)
+DET_SEGSUM = ("1m-1296x840", SWIN_NAME)   # settings on the sort reduction
+
+
+def determinism_state(name, st):
+    """The setting's state with n_alive cut to DETERMINISM["alive"] of its
+    rows and every DETERMINISM["dead_every"]-th alive row's opacity logit
+    at -8 (0.0003 < 0.005), so one densification both relocates and
+    grows. The rows, the widths and the cameras are the setting's."""
+    import dataclasses as dc
+
+    state = st["state"]
+    im = state.im if name == SWIN_NAME else state
+    n = int(DETERMINISM["alive"] * im.capacity)
+    opa = im.opacity.clone()
+    opa[:n:DETERMINISM["dead_every"]] = -8.0
+    im = dc.replace(im, n_alive=n, opacity=opa)
+    return dc.replace(state, im=im) if name == SWIN_NAME else im
+
+
+@contextlib.contextmanager
+def record_draws(store):
+    """Record (probs, templates) of every template draw: the static and
+    the SwinGS densifications both call mcmc._sample_templates through
+    the module."""
+    from gsplat_tpu_torch.model import mcmc
+
+    orig = mcmc._sample_templates
+
+    def recorder(gen, probs, capacity):
+        t = orig(gen, probs, capacity)
+        store.append((probs, t))
+        return t
+
+    mcmc._sample_templates = recorder
+    try:
+        yield
+    finally:
+        mcmc._sample_templates = orig
+
+
+def _det_fns(name, st):
+    """(step(state, adam, gen, i) -> (state, adam, metrics),
+    densify(state, adam, gen) -> (state, adam)) of the setting."""
+    import torch
+
+    from gsplat_tpu_torch.train import step as step_lib
+    from gsplat_tpu_torch.train import swin_step
+    from gsplat_tpu_torch.train.config import OptimizationConfig
+
+    opt = OptimizationConfig()
+    bg = torch.zeros(3, device=DEVICE)
+    cams, gts = st["cams"], st["gts"]
+    if name == SWIN_NAME:
+        step = swin_step.make_swin_train_step(opt, st["settings"], 4.0)
+        dens = swin_step.make_swin_densify_step(SWIN["cap"],
+                                                SWIN["lifespan"])
+        return (lambda s, a, g, i: step(
+            s, a, g, cams[i % 4], gts[i % 4], bg, float(i + 1),
+            float(i % SWIN["lifespan"]), SWIN["sh"]),
+            lambda s, a, g: dens(s, a, g, 0.0, True))
+    step = step_lib.make_train_step(opt, st["settings"], 4.0)
+    return (lambda s, a, g, i: step(s, a, g, cams[i % len(cams)],
+                                    gts[i % len(cams)], bg, float(i + 1),
+                                    SH_DEGREE),
+            step_lib.make_densify_step(st["state"].capacity))
+
+
+def determinism_run(name, st, state, wrappers, scatter=None):
+    """DETERMINISM["before"] fused steps, one densification and
+    DETERMINISM["after"] steps from ``state`` and a generator seeded 0,
+    launch counts zeroed before and read after; with ``scatter`` (a list)
+    the first step's scatter-add reduction inputs are recorded into it.
+    Returns (leaves, draws, launches, (state, adam, generator state)
+    before the densification)."""
+    import torch
+
+    from gsplat_tpu_torch.model import optim
+    from gsplat_tpu_torch.raster import rasterize as rast
+    from gsplat_tpu_torch.utils.checkpoint import flatten_with_keys
+
+    step, dens = _det_fns(name, st)
+    gen = torch.Generator(device=DEVICE)
+    gen.manual_seed(0)
+    s, a = state, optim.init(state.params())
+    draws = []
+    for w in wrappers.values():
+        w.launches = 0
+    for i in range(DETERMINISM["before"] + DETERMINISM["after"]):
+        if i == DETERMINISM["before"]:
+            before = (s, a, gen.get_state())
+            with record_draws(draws):
+                s, a = dens(s, a, gen)
+        with (capture(rast, "_scatter_reduce", scatter)
+              if i == 0 and scatter is not None
+              else contextlib.nullcontext()):
+            s, a, _ = step(s, a, gen, i)
+    torch.cuda.synchronize()
+    launches = {k: w.launches for k, w in wrappers.items()}
+    leaves = [(f"state{k}", v) for k, v in flatten_with_keys(s)] + [
+        (f"adam{k}", v) for k, v in flatten_with_keys(a)]
+    return leaves, draws, launches, before
+
+
+def scatter_index_add(dfeat, gid, p1):
+    """``rasterize._scatter_reduce`` with ``index_add_`` in place of
+    ``index_put_(accumulate=True)`` (atomic adds on the card): the
+    yardstick of the determinism phase."""
+    import torch
+
+    k = gid.shape[0]
+    idx = torch.where(gid == p1 - 1, p1 + torch.arange(k, device=gid.device),
+                      gid.long())
+    out = torch.zeros(p1 + k, dfeat.shape[0], device=dfeat.device)
+    return out.index_add_(0, idx, dfeat.t())[:p1]
+
+
+def bit_patterns(fn, n=4) -> int:
+    """Distinct bit patterns among n calls of fn()."""
+    return len({_digest([fn()]) for _ in range(n)})
+
+
+def cdf_steps(cdf, probs) -> dict:
+    """A raw CDF's down-steps and its up-steps at zero-probability rows,
+    everywhere and at multi_cumsum's 16384-element tile joins."""
+    import torch
+
+    from gsplat_tpu_torch.raster import scan_kernel
+
+    prev, cur = cdf[:-1], cdf[1:]
+    join = torch.arange(1, cdf.shape[0], device=cdf.device) \
+        % scan_kernel.CUMSUM_BLOCK == 0
+    down, up = cur < prev, (probs[1:] == 0) & (cur > prev)
+    return dict(down_steps=int(down.sum()),
+                down_steps_at_joins=int((down & join).sum()),
+                zero_rows=int((probs == 0).sum()),
+                zero_row_up_steps=int(up.sum()),
+                zero_row_up_steps_at_joins=int((up & join).sum()))
+
+
+def determinism_phase(setups, swin_st, wrappers, card_name):
+    """Per training setting (train-100k, train-1m, swin-200k) at full
+    width, from ``determinism_state``: ``determinism_run`` twice; every
+    state and Adam leaf (n_alive too) and every draw's templates
+    bit-equal between the runs, no zero-probability template drawn, the
+    launches those of the steps plus one multi_cumsum and one
+    multi_cummax a draw (relocation and growth; SwinGS one a window
+    frame, then growth). On the relocation's own probabilities: the
+    distinct bit patterns of 4 torch.cumsum and of 4 multi_cumsum calls
+    (1), multi_cummax on the CDF's bits against plain and twice bit-equal
+    (at 1M also timed: the kernels line's entry), the raw CDFs' steps at
+    zero rows and tile joins (``cdf_steps``), and the densification's wall
+    ms (median of 3) beside the same densification with a torch.cumsum
+    CDF. On train-100k, the scatter-add reduction's inputs of the first
+    step: two ``_scatter_reduce`` calls bit-equal, the bit patterns of 4
+    of them and of 4 ``scatter_index_add`` calls. Returns ({setting:
+    launches}, inputs for ``determinism_profile``)."""
+    import torch
+
+    from gsplat_tpu_torch.model import mcmc
+    from gsplat_tpu_torch.raster import rasterize as rast
+    from gsplat_tpu_torch.raster import scan_kernel
+
+    launches_by, keep = {}, {"probs": {}, "bits": {}}
+    for name, st in [*setups.items(), (SWIN_NAME, swin_st)]:
+        t0 = time.time()
+        state = determinism_state(name, st)
+        scatter = [] if name == "100k-800x800" else None
+        (la, da, na, before), (lb, db, nb, _) = [
+            determinism_run(name, st, state, wrappers,
+                            scatter if r == 0 else None) for r in range(2)]
+        diff = [k for (k, x), (_, y) in zip(la, lb, strict=True)
+                if not (torch.equal(x, y) if isinstance(x, torch.Tensor)
+                        else x == y)]
+        diff += [f"draw {i}" for i, ((_, x), (_, y)) in
+                 enumerate(zip(da, db, strict=True)) if not torch.equal(x, y)]
+        if diff:
+            raise AssertionError(f"determinism {name}: the runs differ at "
+                                 f"{diff[:8]}")
+        steps = DETERMINISM["before"] + DETERMINISM["after"]
+        draws = SWIN["lifespan"] + 1 if name == SWIN_NAME else 2
+        want = {k: 0 for k in wrappers}
+        want.update(tile_blend_forward=steps, tile_blend_backward=steps,
+                    merge_expand=steps, multi_cummax=draws,
+                    multi_cumsum=draws + (steps if name in DET_SEGSUM
+                                          else 0))
+        if len(da) != draws or na != want or nb != want:
+            raise AssertionError(f"determinism {name}: {len(da)} draws, "
+                                 f"launches {na} / {nb}, expected {want}")
+        zero_drawn = sum(int((p[t] == 0).sum()) for p, t in da)
+        if zero_drawn:
+            raise AssertionError(f"determinism {name}: {zero_drawn} "
+                                 f"zero-probability templates drawn")
+        probs = da[0][0].contiguous()
+        mc_patterns = bit_patterns(lambda: scan_kernel.multi_cumsum(
+            probs[None]))
+        if mc_patterns != 1:
+            raise AssertionError(f"determinism {name}: multi_cumsum gave "
+                                 f"{mc_patterns} bit patterns")
+        raw = scan_kernel.multi_cumsum(probs[None])
+        # multi_cummax on the sampler's input: the positive rows' CDF bits
+        bits = torch.where(probs[None] > 0, raw,
+                           torch.zeros_like(raw)).view(torch.int32)
+        got = scan_kernel.multi_cummax(bits)
+        if not (torch.equal(got, scan_kernel.multi_cummax_plain(bits))
+                and torch.equal(got, scan_kernel.multi_cummax(bits))):
+            raise AssertionError(f"determinism {name}: multi_cummax differs "
+                                 f"from plain or from itself")
+        keep["bits"][name] = bits
+        if name == "1m-1296x840":
+            keep["cummax_entry"] = entry = dict(
+                name="multi_cummax", route="cuda",
+                source="gsplat_tpu_torch/csrc/scan_kernels.cu",
+                replaces="gsplat_tpu/raster/scan_kernel.py:66",
+                max_abs_err=0.0,
+                ms=cuda_ms(lambda: scan_kernel.multi_cummax(bits), 20),
+                plain_ms=cuda_ms(
+                    lambda: scan_kernel.multi_cummax_plain(bits), 20),
+                bound_ms=2 * bits.numel() * 4 / MEM_BPS * 1e3,
+                bound_by="bytes",
+                library_ms=cuda_ms(lambda: torch.cummax(bits, dim=1), 20),
+                shape=f"n=1 K={bits.shape[1]} (the relocation CDF's bits)")
+            log("kernel", card=card_name, setting=name, **entry)
+        s0, a0, g0 = before
+        im0 = s0.im if name == SWIN_NAME else s0
+        _, dens = _det_fns(name, st)
+
+        def densify_ms():
+            out = []
+            for _ in range(3):
+                g = torch.Generator(device=DEVICE)
+                g.set_state(g0)
+                torch.cuda.synchronize()
+                t = time.perf_counter()
+                s1, _ = dens(s0, a0, g)
+                torch.cuda.synchronize()
+                out.append((time.perf_counter() - t) * 1e3)
+            return out, (s1.im if name == SWIN_NAME else s1).n_alive
+
+        ms, n_after = densify_ms()
+        orig = mcmc._template_cdf
+        mcmc._template_cdf = lambda p: torch.cumsum(p, 0)
+        try:
+            ms_cumsum, _ = densify_ms()
+        finally:
+            mcmc._template_cdf = orig
+        extra = {}
+        if scatter:
+            dfeat, gid, p1 = scatter[0][0]
+            dfeat = dfeat.detach()
+            outs = [rast._scatter_reduce(dfeat, gid, p1) for _ in range(2)]
+            if not torch.equal(*outs):
+                raise AssertionError("determinism: two scatter-add "
+                                     "reductions of the 100k step differ")
+            keep["scatter"] = (dfeat, gid, p1)
+            old = scatter_index_add(dfeat, gid, p1)
+            extra = dict(
+                reduction_slots=int(gid.shape[0]), reduction_rows=p1,
+                scatter_reduce_patterns=bit_patterns(
+                    lambda: rast._scatter_reduce(dfeat, gid, p1)),
+                index_add_patterns=bit_patterns(
+                    lambda: scatter_index_add(dfeat, gid, p1)),
+                scatter_vs_index_add_rel=float((outs[0] - old).abs().max())
+                / float(old.abs().max()))
+        keep["probs"][name] = probs
+        launches_by[name] = na
+        log("determinism", card=card_name, setting=name,
+            rows=int(probs.shape[0]), steps=steps, draws=len(da),
+            leaves_bit_equal=len(la), templates_bit_equal=True,
+            relocated=int((im0.alive_mask & (im0.get_opacity()[:, 0]
+                                             <= 0.005)).sum()),
+            n_alive_before=im0.n_alive, n_alive_after=n_after,
+            zero_prob_templates=zero_drawn,
+            multi_cumsum_patterns=mc_patterns,
+            torch_cumsum_patterns=bit_patterns(
+                lambda: torch.cumsum(probs, 0)),
+            multi_cumsum_cdf=cdf_steps(raw[0], probs),
+            torch_cumsum_cdf=cdf_steps(torch.cumsum(probs, 0), probs),
+            densify_wall_ms=ms, densify_wall_ms_median=statistics.median(ms),
+            densify_torch_cumsum_wall_ms=ms_cumsum,
+            densify_torch_cumsum_wall_ms_median=statistics.median(
+                ms_cumsum),
+            launches=na, seconds=time.time() - t0, **extra)
+    return launches_by, keep
+
+
+def determinism_profile(keep, card_name):
+    """Device ms (torch.profiler, after every wall-clock timing) of
+    multi_cumsum and of torch.cumsum on each setting's [1, C] relocation
+    probabilities, of multi_cummax on their CDF's bits and of
+    torch.cummax on the probabilities, beside the bytes bound (C read, C
+    written, either kernel); and of the
+    100k step's scatter-add reduction: ``_scatter_reduce``
+    (index_put_), ``scatter_index_add`` and ``_segsum_reduce`` (sort +
+    multi_cumsum) on the same inputs, every kernel of each call."""
+    import torch
+
+    from gsplat_tpu_torch.raster import rasterize as rast
+    from gsplat_tpu_torch.raster import scan_kernel
+
+    for name, probs in keep["probs"].items():
+        x, bits = probs[None], keep["bits"][name]
+        cummax_ms = device_ms(lambda: scan_kernel.multi_cummax(bits), 20,
+                              ("multi_cummax_kernel",))
+        if name == "1m-1296x840":
+            keep["cummax_entry"]["device_ms"] = cummax_ms
+        log("determinism_profile", card=card_name, setting=name,
+            shape=f"[1, {x.shape[1]}]",
+            multi_cumsum_device_ms=device_ms(
+                lambda: scan_kernel.multi_cumsum(x), 20,
+                ("multi_cumsum_kernel",)),
+            torch_cumsum_device_ms=device_ms(
+                lambda: torch.cumsum(probs, 0), 20, ("",)),
+            multi_cummax_device_ms=cummax_ms,
+            torch_cummax_device_ms=device_ms(
+                lambda: torch.cummax(x, dim=1), 20, ("",)),
+            bound_ms=8 * x.shape[1] / MEM_BPS * 1e3, bound_by="bytes")
+    dfeat, gid, p1 = keep["scatter"]
+    seg_bounds = torch.searchsorted(
+        torch.sort(gid).values,
+        torch.arange(p1, dtype=gid.dtype, device=gid.device)).to(
+            torch.int32)
+    seg = rast._segsum_reduce(dfeat, gid, seg_bounds, p1)
+    put = rast._scatter_reduce(dfeat, gid, p1)
+    log("determinism_profile", card=card_name, setting="100k-800x800",
+        reduction=f"dfeat [9, {gid.shape[0]}] -> [{p1}, 9]",
+        index_put_device_ms=device_ms(
+            lambda: rast._scatter_reduce(dfeat, gid, p1), 20, ("",)),
+        index_add_device_ms=device_ms(
+            lambda: scatter_index_add(dfeat, gid, p1), 20, ("",)),
+        segsum_device_ms=device_ms(
+            lambda: rast._segsum_reduce(dfeat, gid, seg_bounds, p1), 20,
+            ("",)),
+        segsum_vs_index_put_rel=float((seg - put).abs().max())
+        / float(put.abs().max()))
+
+
 # ------------------------------------- checkpoint, replay, profile, ARAP ----
 
 def write_replay_schedule(path, names, n_init, cap, iters, densify_at, seed,
@@ -2296,9 +2696,9 @@ def resume_phase(st, wrappers, card_name):
     iteration, cameras, noise and relocations from a schedule written
     here): RESUME["iters"] steps with a checkpoint (utils/checkpoint.py)
     at RESUME["ckpt"], then the checkpoint loaded and the run resumed from
-    it. Gates: the checkpoint round-trips bit-equal and every resumed loss
-    is within rel 1e-5 of the uninterrupted run's (the scatter-add
-    reduction's atomics may reorder sums; on the CPU it is bit-equal)."""
+    it. Gates: the checkpoint round-trips bit-equal, and every resumed
+    loss, the final state and its Adam moments are bit-equal to the
+    uninterrupted run's (the scatter-add reduction sorts, no atomics)."""
     import torch
 
     from gsplat_tpu_torch.model import optim
@@ -2346,7 +2746,7 @@ def resume_phase(st, wrappers, card_name):
     s_half, a_half, first = run(state, optim.init(state.params()), 1, n_ckpt)
     ckpt = os.path.join(WORK, f"chkpnt{n_ckpt}.npz")
     ckpt_lib.save(ckpt, s_half, a_half, n_ckpt)
-    s_full, _, rest = run(s_half, a_half, n_ckpt + 1, n_all)
+    s_full, a_full, rest = run(s_half, a_half, n_ckpt + 1, n_all)
     uninterrupted_s = time.perf_counter() - t0
     s_load, a_load, it_load, _ = ckpt_lib.load(ckpt, DEVICE)
     same = (it_load == n_ckpt and s_load.n_alive == s_half.n_alive
@@ -2358,7 +2758,7 @@ def resume_phase(st, wrappers, card_name):
                     for k in a_half.mu))
     if not same:
         raise AssertionError("resume: the checkpoint does not round-trip")
-    s_res, _, resumed = run(s_load, a_load, n_ckpt + 1, n_all)
+    s_res, a_res, resumed = run(s_load, a_load, n_ckpt + 1, n_all)
     torch.cuda.synchronize()
     launches = {k: w.launches for k, w in wrappers.items()}
     steps = n_all + (n_all - n_ckpt)
@@ -2371,15 +2771,21 @@ def resume_phase(st, wrappers, card_name):
         raise AssertionError(f"resume: launches {launches} over {steps} "
                              f"steps")
     rel = {it: abs(resumed[it] - rest[it]) / abs(rest[it]) for it in rest}
-    if max(rel.values()) > 1e-5 or not all(map(math.isfinite, rest.values())):
+    if resumed != rest or not all(map(math.isfinite, rest.values())):
         raise AssertionError(f"resume: losses {resumed} vs {rest}")
+    differ = [k for k, v in s_full.params().items()
+              if not torch.equal(v, s_res.params()[k])]
+    differ += [f"{m}[{k}]" for m in ("mu", "nu") for k in a_full.mu
+               if not torch.equal(getattr(a_full, m)[k],
+                                  getattr(a_res, m)[k])]
+    if differ or s_res.n_alive != s_full.n_alive:
+        raise AssertionError(f"resume: the final state differs at {differ}")
     log("resume", card=card_name, setting="100k-800x800", iterations=n_all,
         checkpoint_at=n_ckpt, densify_at=list(RESUME["densify_at"]),
         relocated_per_event=RESUME["dead"], checkpoint_round_trip=True,
         losses_uninterrupted={**first, **rest}, losses_resumed=resumed,
-        max_loss_rel=max(rel.values()),
-        params_bit_equal=all(torch.equal(v, s_res.params()[k])
-                             for k, v in s_full.params().items()),
+        max_loss_rel=max(rel.values()), losses_bit_equal=True,
+        state_and_moments_bit_equal=True,
         uninterrupted_s=uninterrupted_s,
         launches_per_step={k: v / steps for k, v in launches.items()})
     return launches
@@ -2745,7 +3151,7 @@ def _rank_wrappers():
 
 def _run_mode(mode, steps, run, capture_on, card_name, out):
     """Run ``run(i)`` for i < steps with the launch counts
-    zeroed before and read after (per step), the first step's kernel
+    zeroed before and read after (in all), the first step's kernel
     inputs recorded when ``capture_on``; wall ms of the later steps.
     Returns the recorded inputs."""
     import torch
@@ -2776,8 +3182,8 @@ def _run_mode(mode, steps, run, capture_on, card_name, out):
         sync()
         if i:
             ms.append((time.perf_counter() - t0) * 1e3)
-    out.setdefault("launches_per_step", {})[mode] = {
-        k: w.launches / steps for k, w in wrappers.items()}
+    out.setdefault("launches", {})[mode] = {
+        k: w.launches for k, w in wrappers.items()}
     out.setdefault("ms_per_step", {})[mode] = ms
     out.setdefault("rank", dist.get_rank())
     cap = {k: v[0] for k, v in store.items() if v}
@@ -2820,14 +3226,15 @@ def parallel_rank(inputs_path, card_name):
     from gsplat_tpu_torch.model import optim
     from gsplat_tpu_torch.parallel import mesh as mesh_lib
     from gsplat_tpu_torch.parallel import pshard as pshard_mod
-    from gsplat_tpu_torch.parallel.dp import (make_dp_densify_step,
-                                              make_dp_train_step)
+    from gsplat_tpu_torch.parallel.dp import make_dp_train_step
     from gsplat_tpu_torch.parallel.pshard import make_pshard_train_step
     from gsplat_tpu_torch.parallel.swin_dp import make_dp_swin_train_step
     from gsplat_tpu_torch.parallel.tileshard import make_tileshard_render
     from gsplat_tpu_torch.train import step as step_lib
     from gsplat_tpu_torch.train import swin_step
     from gsplat_tpu_torch.train.config import OptimizationConfig
+    from gsplat_tpu_torch.train.train_static import (_gather_adam,
+                                                     _shard_adam)
 
     rank = dist.get_rank()
     # every rank on the card (the CPU in a rehearsal without one)
@@ -2847,6 +3254,35 @@ def parallel_rank(inputs_path, card_name):
         g.manual_seed(seed)
         return g
 
+    def timed(key, fn, *args):
+        """fn(*args), its wall ms (the card synchronised) in out[key]."""
+        if check:
+            torch.cuda.synchronize()
+        t = time.perf_counter()
+        res = fn(*args)
+        if check:
+            torch.cuda.synchronize()
+        out[key] = (time.perf_counter() - t) * 1e3
+        return res
+
+    def state_digest(s, a):
+        return _digest(list(s.params().values()) + list(a.mu.values())
+                       + list(a.nu.values()))
+
+    def densify_shards(p, a, m, g):
+        """The trainer's pshard densification: the gathered state and
+        moments densified on every rank from the replicated generator
+        ``g``, no broadcast after it; returns this rank's rows, moments,
+        alive rows and n_alive, and the densified whole (state, moments)
+        for a digest outside the timed step."""
+        s = tr["state"].replace_params(mesh_lib.gather_rows(p, m, "ps"))
+        s, full = step_lib.make_densify_step(s.capacity)(
+            s, _gather_adam(a, m), g)
+        return ({k: mesh_lib.shard_rows(v, m, "ps")
+                 for k, v in s.params().items()}, _shard_adam(full, m),
+                mesh_lib.shard_rows(s.alive_mask, m, "ps"), s.n_alive,
+                (s, full))
+
     tr = inp["train"]
     if rank < 2:
         mesh = mesh_lib.Mesh({a: mesh_lib.Axis(g01, 2, rank)
@@ -2855,15 +3291,16 @@ def parallel_rank(inputs_path, card_name):
         carry = {}
         step0 = make_dp_train_step(mesh, opt0, tr["settings"], 4.0)
         stepn = make_dp_train_step(mesh, opt, tr["settings"], 4.0)
-        densify = make_dp_densify_step(mesh, tr["state"].capacity)
+        densify = step_lib.make_densify_step(tr["state"].capacity)
         g = gen(0)
 
         def run_dp(i):
             s, a = carry.get("s", tr["state"]), carry.get(
                 "a", optim.init(tr["state"].params()))
             fn = step0 if i == 0 else stepn
-            s, a, m = fn(s, a, g, tr["cams"][rank], tr["gts"][rank], bg,
-                         float(i + 1), SH_DEGREE)
+            s, a, m = timed(f"dp_train_ms_{i}", fn, s, a, g,
+                            tr["cams"][rank], tr["gts"][rank], bg,
+                            float(i + 1), SH_DEGREE)
             if i == 0:
                 out["dp_loss"] = float(m.loss)
                 out["dp_param_diff"] = max(
@@ -2873,13 +3310,19 @@ def parallel_rank(inputs_path, card_name):
                     float((s.params()[k] - tr["ref"][k]).abs().max())
                     for k in tr["ref"])
             if i == 1:
-                s, a = densify(s, a, g)
+                carry["pre"] = (s, a, g.get_state())
+                s, a = timed("dp_densify_ms", densify, s, a, g)
+                carry["dense"] = (s, a)
             carry.update(s=s, a=a)
 
         cap = _run_mode("dp", PARALLEL_STEPS, run_dp, cap_on,
                         card_name, out)
-        out["dp_digest"] = _digest(list(carry["s"].params().values())
-                                   + list(carry["a"].mu.values()))
+        out["dp_digest"] = state_digest(carry["s"], carry["a"])
+        out["dp_densified_digest"] = state_digest(*carry["dense"])
+        # the same densification again, its kernels loaded by the first
+        s0, a0, g_state = carry["pre"]
+        g.set_state(g_state)
+        timed("dp_densify_again_ms", densify, s0, a0, g)
         if rank == 0 and check:
             _check_mode_kernels("dp-1m-1296x840", cap, card_name)
         carry.clear()
@@ -2893,15 +3336,16 @@ def parallel_rank(inputs_path, card_name):
                                      SH_DEGREE)
         psn = make_pshard_train_step(mesh, opt, tr["settings"], 4.0,
                                      SH_DEGREE)
-        ng = gen(1 + rank)
+        ng, dg = gen(1 + rank), gen(0)
 
         def run_ps(i):
             p, a = carry.get("p", rows), carry.get("a", optim.init(rows))
+            al, n = carry.get("alive", alive), carry.get("n", state.n_alive)
             slab = []
             with capture(pshard_mod, "rasterize", slab):
                 p, a, m = (ps0 if i == 0 else psn)(
-                    p, alive, a, ng, tr["cams"][0], tr["gts"][0], bg,
-                    float(i + 1), state.n_alive)
+                    p, al, a, ng, tr["cams"][0], tr["gts"][0], bg,
+                    float(i + 1), n)
             if i == 0:
                 out["ps_loss"] = float(m.loss)
                 # the slabs' semantics against the single device (not a
@@ -2912,10 +3356,14 @@ def parallel_rank(inputs_path, card_name):
                 carry["A"] = (p, a)
                 # the rows of this rank's depth slab
                 out["ps_slab_rows"] = int(slab[0][1]["alive"].sum())
+            if i == 1:
+                p, a, carry["alive"], carry["n"], carry["dense"] = timed(
+                    "ps_densify_ms", densify_shards, p, a, mesh, dg)
             carry.update(p=p, a=a)
 
         cap = _run_mode("pshard", PARALLEL_STEPS, run_ps, cap_on,
                         card_name, out)
+        out["ps_densified_digest"] = state_digest(*carry["dense"])
         if rank == 0 and check:
             _check_mode_kernels("pshard-1m-1296x840", cap, card_name)
         out["ps_param_diff"], out["ps_mu_rel"] = _slab_reference_diffs(
@@ -2928,6 +3376,8 @@ def parallel_rank(inputs_path, card_name):
         sstep0 = make_dp_swin_train_step(mesh, opt0, sw["settings"], 4.0)
         sstepn = make_dp_swin_train_step(mesh, opt, sw["settings"], 4.0)
         sg = gen(0)
+        sdens = swin_step.make_swin_densify_step(SWIN["cap"],
+                                                 SWIN["lifespan"])
 
         def run_sdp(i):
             s, a = carry.get("s", sw["state"]), carry.get(
@@ -2941,11 +3391,15 @@ def parallel_rank(inputs_path, card_name):
                 out["sdp_param_diff"] = max(
                     _masked_diff(s.params()[k], sw["ref"][k],
                                  sw["mean_grad"][k]) for k in sw["ref"])
+            if i == 1:
+                s, a = timed("sdp_densify_ms", sdens, s, a, sg, 0.0, True)
+                carry["dense"] = (s, a)
             carry.update(s=s, a=a)
 
         cap = _run_mode("swin_dp", PARALLEL_STEPS, run_sdp, cap_on,
                         card_name, out)
-        out["sdp_digest"] = _digest(list(carry["s"].params().values()))
+        out["sdp_digest"] = state_digest(carry["s"], carry["a"])
+        out["sdp_densified_digest"] = state_digest(*carry["dense"])
         if rank == 0 and check:
             _check_mode_kernels(f"swin_dp-{SWIN_NAME}", cap, card_name)
         carry.clear()
@@ -2979,16 +3433,17 @@ def parallel_rank(inputs_path, card_name):
                                 SH_DEGREE, dp_axis="dp")
     dn = make_pshard_train_step(mesh2d, opt, tr["settings"], 4.0,
                                 SH_DEGREE, dp_axis="dp")
-    ng = gen(1 + mesh2d.axis_index("ps"))
+    ng, dg = gen(1 + mesh2d.axis_index("ps")), gen(0)
     carry = {}
 
     def run_2d(i):
         p, a = carry.get("p", rows), carry.get("a", optim.init(rows))
+        al, n = carry.get("alive", alive), carry.get("n", state.n_alive)
         slab = []
         with capture(pshard_mod, "rasterize", slab):
             p, a, m = (d0 if i == 0 else dn)(
-                p, alive, a, ng, tr["cams"][row], tr["gts"][row], bg,
-                float(i + 1), state.n_alive)
+                p, al, a, ng, tr["cams"][row], tr["gts"][row], bg,
+                float(i + 1), n)
         if i == 0:
             out["dps_loss"] = float(m.loss)
             (out["dps_vs_single_param_diff"],
@@ -2996,11 +3451,17 @@ def parallel_rank(inputs_path, card_name):
                 p, a, tr["ref"], tr["mean_grad"], mesh2d)
             carry["A"] = (p, a)
             out["dps_slab_rows"] = int(slab[0][1]["alive"].sum())
+        if i == 1:
+            p, a, carry["alive"], carry["n"], carry["dense"] = timed(
+                "dps_densify_ms", densify_shards, p, a, mesh2d, dg)
         carry.update(p=p, a=a)
 
     cap = _run_mode("dp_x_ps", PARALLEL_STEPS, run_2d, cap_on,
                     card_name, out)
-    out["dps_digest"] = _digest(list(carry["p"].values()))
+    out["dps_densified_digest"] = state_digest(*carry["dense"])
+    out["dps_digest"] = _digest(list(carry["p"].values())
+                                + list(carry["a"].mu.values())
+                                + list(carry["a"].nu.values()))
     if rank == 0 and check:
         _check_mode_kernels("dp_x_ps-1m-1296x840", cap, card_name)
     out["dps_param_diff"], out["dps_mu_rel"] = _slab_reference_diffs(
@@ -3017,20 +3478,25 @@ def parallel_phase(setups, swin_st, eval_state, card_name):
     """The multi-rank modes on four gloo ranks sharing the card, each held
     against the single-device path on the card: dp and swin-dp loss rel
     <= 1e-5 of the camera mean and params within 2e-4 over the entries
-    whose mean gradient is at least 2e-4 of the leaf's max, the replicated
-    state bit-equal across ranks after the noisy steps (a relocation
-    included for dp); pshard and dp x ps loss rel <= 5e-3 of the
+    whose mean gradient is at least 2e-4 of the leaf's max; pshard and
+    dp x ps loss rel <= 5e-3 of the
     single-device loss, their parameters after step A within 2e-4 over
     the same masked entries, and their first Adam moment within
     PS_MU_REL of the leaf's largest, of the step that the same
     slab-composited loss gives in one process (camera 0 for pshard, the
     camera mean for dp x ps; ``_slab_reference_grads``), dp x ps shards
     bit-equal across dp rows;
-    tileshard within 2e-5 of the single-device frame. Every step launches
-    one blend forward, blend backward and owner expansion per rank, and
-    multi_cumsum where the rows exceed 250k (all three settings). Step
-    times are of N ranks sharing one card, not a scaling figure. Returns
-    the launches summed over the ranks."""
+    tileshard within 2e-5 of the single-device frame. Each training mode
+    densifies after its second step with no broadcast after it (dp and
+    swin-dp on the replicated state, pshard and dp x ps on the gathered
+    one, as the trainers do): the densified state and moments, and the
+    state after the last step, bit-equal across the ranks that replicate
+    them (``*_digest``). Every step launches one blend forward, blend
+    backward and owner expansion per rank, and multi_cumsum where the
+    rows exceed 250k (all three settings); each densification one
+    multi_cumsum a template draw. Step times are of N ranks sharing one
+    card, not a scaling figure; the second step's includes the
+    densification. Returns the launches summed over the ranks."""
     import torch
 
     from gsplat_tpu_torch.parallel import launch
@@ -3074,32 +3540,38 @@ def parallel_phase(setups, swin_st, eval_state, card_name):
             fails.append(f"dp x ps rank {r['rank']}: {r['dps_loss']} vs "
                          f"{dp_mean}, params {r['dps_param_diff']}, "
                          f"mu {r['dps_mu_rel']}")
-    if r0["dp_digest"] != r1["dp_digest"]:
-        fails.append("dp: the replicated state differs across ranks")
-    if r0["sdp_digest"] != r1["sdp_digest"]:
-        fails.append("swin-dp: the replicated state differs across ranks")
-    if r0["dps_digest"] != r2["dps_digest"] or \
-            r1["dps_digest"] != r3["dps_digest"]:
-        fails.append("dp x ps: the shards differ across dp rows")
-    train_want = dict(tile_blend_forward=1, tile_blend_backward=1,
-                      merge_expand=1, multi_cumsum=1)
+    same = {"dp_densified_digest": (r0, r1), "dp_digest": (r0, r1),
+            "sdp_densified_digest": (r0, r1), "sdp_digest": (r0, r1),
+            "ps_densified_digest": (r0, r1),
+            "dps_densified_digest": res, "dps_digest": (r0, r2)}
+    for key, ranks in same.items():
+        if len({r[key] for r in ranks}) != 1:
+            fails.append(f"{key}: the ranks differ")
+    if r1["dps_digest"] != r3["dps_digest"]:
+        fails.append("dps_digest: the shards differ across dp rows")
+    # template draws of each mode's densification
+    draws = dict(dp=2, pshard=2, dp_x_ps=2, swin_dp=SWIN["lifespan"] + 1)
+    n = PARALLEL_STEPS
     for r in res:
-        for mode, per in r["launches_per_step"].items():
+        for mode, got in r["launches"].items():
             if mode == "tileshard":
-                owner = per["expand_scan"] + per["merge_expand"]
-                ok = (per["tile_blend_forward"] == 1 and owner == 1
-                      and sum(per.values()) == 2)
+                owner = got["expand_scan"] + got["merge_expand"]
+                ok = (got["tile_blend_forward"] == n and owner == n
+                      and sum(got.values()) == 2 * n)
             else:
-                ok = all(per[k] == train_want.get(k, 0) for k in per)
+                want = dict(tile_blend_forward=n, tile_blend_backward=n,
+                            merge_expand=n, multi_cumsum=n + draws[mode],
+                            multi_cummax=draws[mode])
+                ok = all(got[k] == want.get(k, 0) for k in got)
             if not ok:
-                fails.append(f"rank {r['rank']} {mode}: launches {per}")
+                fails.append(f"rank {r['rank']} {mode}: launches {got}")
     if fails:
         raise AssertionError("parallel: " + "; ".join(fails))
-    launches = {k: 0 for k in r0["launches_per_step"]["dp"]}
+    launches = {k: 0 for k in r0["launches"]["dp"]}
     for r in res:
-        for mode, per in r["launches_per_step"].items():
-            for k, v in per.items():
-                launches[k] += int(round(v * PARALLEL_STEPS))
+        for got in r["launches"].values():
+            for k, v in got.items():
+                launches[k] += v
     log("parallel", card=card_name, ranks=4, backend="gloo",
         note="N ranks sharing one H100 over gloo: not a scaling figure",
         settings={"dp / pshard / dp_x_ps": "1m-1296x840",
@@ -3107,7 +3579,9 @@ def parallel_phase(setups, swin_st, eval_state, card_name):
         single_device_loss_cam01=loss_cam, swin_loss_cam01=sloss_cam,
         per_rank=[{k: v for k, v in r.items() if not k.endswith("digest")}
                   for r in res],
-        replicated_bit_equal=True, setup_s=setup_s, ranks_s=run_s)
+        replicated_bit_equal=True, densified_bit_equal=True,
+        dp_densify_step_ms=r0["ms_per_step"]["dp"][0],
+        setup_s=setup_s, ranks_s=run_s)
     return launches
 
 
@@ -3147,7 +3621,7 @@ def main() -> int:
 
     # ---- each kernel against its plain version
     kernels = check_kernels(cap, card_name)
-    kernels["multi_cummax"] = check_multi_cummax(card_name)
+    cummax_alone = check_multi_cummax(card_name)
     check_small(card_name)
 
     # ---- serving main paths, launch counts zeroed just before each and
@@ -3268,10 +3742,18 @@ def main() -> int:
                                         card_name)
     swin_launches["cli"] = swin_cli(wrappers, card_name)
 
+    # ---- two runs of steps around a densification, bit for bit, per
+    # training setting; counts zeroed before each run
+    det_launches, det_keep = determinism_phase(setups, swin_st, wrappers,
+                                               card_name)
+    more_launches = {"determinism": {
+        k: sum(n[k] for n in det_launches.values()) for k in wrappers}}
+    # multi_cummax's main-path shape: the 1M relocation's CDF bits
+    kernels["multi_cummax"] = det_keep["cummax_entry"]
+
     # ---- resume from a checkpoint under replayed draws, the replay CLI
     # on the card and the CPU (its trace read back), ARAP; counts zeroed
     # before each
-    more_launches = {}
     more_launches["resume"] = resume_phase(setups["100k-800x800"], wrappers,
                                            card_name)
     more_launches["replay"], replay_dir = replay_phase(card_name)
@@ -3287,14 +3769,15 @@ def main() -> int:
     for name, st in setups.items():
         profile_train(name, st, *trained[name], step_ms[name], card_name)
     profile_swin(swin_st, *swin_trained, swin_ms, card_name)
-    cummax_device_ms(kernels["multi_cummax"], card_name)
+    cummax_device_ms(cummax_alone, card_name)
+    determinism_profile(det_keep, card_name)
 
     # ---- the multi-rank modes, in processes of their own (their times are
     # not slowed by this process's profiles); this process first lets go
     # of what they do not need
     eval_state = trained["1m-1296x840"][0]
     del sv, render_fns, store, cap, images, train_caps, swin_cap, trained
-    del swin_trained
+    del swin_trained, det_keep
     gc.collect()
     torch.cuda.empty_cache()
     more_launches["parallel"] = parallel_phase(setups, swin_st, eval_state,

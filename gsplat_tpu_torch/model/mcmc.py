@@ -26,6 +26,7 @@ from scipy.special import comb as _comb
 from gsplat_tpu_torch.core.covariance import covariance_6
 from gsplat_tpu_torch.model import optim
 from gsplat_tpu_torch.model.gaussians import GaussianState, inverse_sigmoid
+from gsplat_tpu_torch.raster import scan_kernel
 
 N_MAX = 51  # fan-out bound of utils/reloc_utils.py:7 (N clamped to 50)
 
@@ -65,11 +66,30 @@ def _relocated_raw(state: GaussianState, template_idx, counts_plus_one):
     return inverse_sigmoid(o_new), torch.log(s_new)
 
 
+def _template_cdf(probs):
+    """The array the template sampler searches: ``scan_kernel.multi_cumsum``
+    of ``probs`` [C], where row i holds the largest CDF value of a
+    positive-probability row at or before i (0 before the first), by
+    ``scan_kernel.multi_cummax`` over the values' bit patterns (a
+    non-negative float32 orders as its int32 bits). One launch of each on
+    the card, the same bits on every call. The raw scan may step down, or
+    up across a zero row, where its sums round differently (at its
+    16384-element tile joins, and inside a tile); this array never
+    decreases and is flat across every zero-probability row."""
+    p = probs[None].contiguous()
+    cdf = scan_kernel.multi_cumsum(p)
+    pos = torch.where(p > 0, cdf, torch.zeros_like(cdf))
+    return scan_kernel.multi_cummax(pos.view(torch.int32)).view(
+        torch.float32)[0]
+
+
 def _sample_templates(gen: torch.Generator, probs, capacity: int):
     """iid opacity-weighted template indices for every row: inverse-CDF
-    sampling (cumsum + uniform + searchsorted). Zero-probability rows are
-    never drawn while any mass is positive (u > 0 strictly)."""
-    cdf = torch.cumsum(probs, dim=0)
+    sampling (``_template_cdf`` + uniform + searchsorted). With u in
+    (0, total] and ``side="left"``, a zero-probability row is never drawn
+    while any mass is positive; each row keeps its probability up to the
+    CDF's ULP, as in JAX's sampler."""
+    cdf = _template_cdf(probs)
     u = torch.rand(capacity, generator=gen, device=probs.device)
     u = torch.clamp(u * cdf[-1], min=_F32_TINY)
     idx = torch.searchsorted(cdf, u, side="left")

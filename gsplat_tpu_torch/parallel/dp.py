@@ -96,18 +96,3 @@ def make_dp_train_step(mesh: Mesh, opt: OptimizationConfig,
                                       psnr=psnr)
 
     return step
-
-
-def make_dp_densify_step(mesh: Mesh, cap_max: int, axis: str = "dp"):
-    """``step.make_densify_step`` on the replicated state, every rank
-    drawing from its replicated generator, then the result of the axis's
-    first rank on all (``mesh.sync_replicas``)."""
-    densify = step_lib.make_densify_step(cap_max)
-
-    def step(state: GaussianState, adam: optim.AdamState,
-             gen: torch.Generator):
-        state, adam = densify(state, adam, gen)
-        mesh_lib.sync_replicas(mesh, (axis,), state, adam)
-        return state, adam
-
-    return step

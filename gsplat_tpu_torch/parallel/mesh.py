@@ -138,13 +138,11 @@ def in_turn(fn):
 def sync_replicas(mesh: Mesh, axes, *trees) -> None:
     """In place: every tensor leaf of ``trees`` (states, Adam states,
     dicts) takes the value of the rank at index 0 of each of ``axes`` in
-    turn, so a replicated state that a step with random draws just
-    rebuilt is the same on every rank. The same draws on the same inputs
-    do not give the same bits twice on a card: ``torch.cumsum`` of the
-    template sampler's CDF (mcmc._sample_templates) returned four
-    different results in four calls on one H100 (300k opacities), so the
-    densification's templates differ between ranks. One broadcast per
-    dtype and axis, the leaves packed."""
+    turn. The trainers call it once, on the initial state, which each
+    process draws from its own numpy stream. Later steps keep replicas
+    equal by themselves (same draws, deterministic kernels and
+    reductions, collectives that give every rank the same bits). One
+    broadcast per dtype and axis, the leaves packed."""
     from gsplat_tpu_torch.utils.checkpoint import flatten_with_keys
 
     leaves = [v for tree in trees for _, v in flatten_with_keys(tree)

@@ -21,7 +21,6 @@ import torch
 from gsplat_tpu_torch.core.camera import CameraParams
 from gsplat_tpu_torch.model import optim, swin
 from gsplat_tpu_torch.model.swin import SwinState
-from gsplat_tpu_torch.parallel import mesh as mesh_lib
 from gsplat_tpu_torch.parallel.dp import pmean_grads, reduce_metrics
 from gsplat_tpu_torch.parallel.mesh import Mesh
 from gsplat_tpu_torch.raster.rasterize import RasterizeSettings
@@ -53,20 +52,5 @@ def make_dp_swin_train_step(mesh: Mesh, opt: OptimizationConfig,
                                          gen, opt.noise_lr, xyz_lr, frame0)
         return state, adam, sstep.SwinMetrics(
             loss=loss, l1=l1, num_dup=num_dup, psnr=psnr, n_active=n_active)
-
-    return step
-
-
-def make_dp_swin_densify_step(mesh: Mesh, cap_max: int, window_size: int,
-                              axis: str = "dp"):
-    """``swin_step.make_swin_densify_step`` on the replicated state, then
-    the result of the axis's first rank on all (``mesh.sync_replicas``)."""
-    densify = sstep.make_swin_densify_step(cap_max, window_size)
-
-    def step(state: SwinState, adam: optim.AdamState, gen: torch.Generator,
-             window_start: float, genesis: bool):
-        state, adam = densify(state, adam, gen, window_start, genesis)
-        mesh_lib.sync_replicas(mesh, (axis,), state, adam)
-        return state, adam
 
     return step

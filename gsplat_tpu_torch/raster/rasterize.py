@@ -110,16 +110,23 @@ def _segsum_reduce(dfeat, gid, seg_bounds, p1: int):
 
 
 def _scatter_reduce(dfeat, gid, p1: int):
-    """dtable [p1, 9] by one ``index_add_``. The padding slots (gid ==
-    p1 - 1, zero gradient) each go to a spare row of their own past the
-    table, because a card serialises atomic adds to one address."""
+    """dtable [p1, 9] by one scatter-add whose sums have the same bits on
+    every call: on the card ``index_put_(accumulate=True)``, which PyTorch
+    computes by sorting the indices and summing each run in order
+    (``index_add_`` there uses atomics); on the CPU ``index_add_``, which
+    sums serially in slot order (``index_put_`` there uses atomics). The
+    padding slots (gid == p1 - 1, zero gradient) each go to a spare row of
+    their own past the table, so no run is K slots long."""
     k = gid.shape[0]
     pad = gid == p1 - 1
     idx = torch.where(pad, p1 + torch.arange(k, device=gid.device),
                       gid.long())
     out = torch.zeros(p1 + k, dfeat.shape[0], dtype=dfeat.dtype,
                       device=dfeat.device)
-    out.index_add_(0, idx, dfeat.t())
+    if out.is_cuda:
+        out.index_put_((idx,), dfeat.t(), accumulate=True)
+    else:
+        out.index_add_(0, idx, dfeat.t())
     return out[:p1]
 
 

@@ -1,6 +1,8 @@
 """Scan kernels (port of gsplat_tpu/raster/scan_kernel.py): the
 owner-expansion kernels of binning, ``expand_scan`` and ``merge_expand``,
 the compensated ``multi_cumsum`` of the gradient reduction, and
+``multi_cummax``; the densification's template CDF
+(``mcmc._template_cdf``) takes one ``multi_cumsum`` and one
 ``multi_cummax``.
 
 Each public function is a wrapper: a CUDA tensor launches the hand-written
@@ -31,8 +33,8 @@ it. The source notes in the .cu file give each kernel's bound and design.
 - ``multi_cummax`` replaces ``scan_kernel._kernel``: the inclusive int32
   cummax of each row of an [n, K] array. The kernel is ``multi_cumsum``'s
   single pass with max, one packed status word a tile, and a state buffer
-  of its own. No module calls it (the JAX package's neither); it is held
-  on the card by itself.
+  of its own. The template sampler runs it over the bit patterns of its
+  non-negative CDF (the JAX package calls it nowhere).
 """
 
 from __future__ import annotations

@@ -52,8 +52,7 @@ from gsplat_tpu_torch.data.scene import DynamicScene, Scene
 from gsplat_tpu_torch.model import gaussians, optim
 from gsplat_tpu_torch.parallel import launch
 from gsplat_tpu_torch.parallel import mesh as mesh_lib
-from gsplat_tpu_torch.parallel.dp import (make_dp_densify_step,
-                                          make_dp_train_step, own_sample)
+from gsplat_tpu_torch.parallel.dp import make_dp_train_step, own_sample
 from gsplat_tpu_torch.parallel.pshard import make_pshard_train_step
 from gsplat_tpu_torch.raster.rasterize import RasterizeSettings
 from gsplat_tpu_torch.train import step as step_lib
@@ -257,9 +256,7 @@ def _train_loop(model_cfg, opt, pipe, args, mesh, device, rank0, tb_writer,
     # documented ordering deviation at densify iterations
     apply_step = step_lib.make_apply_step(
         opt, cameras_extent, external_noise=replay is not None)
-    densify_step = (make_dp_densify_step(mesh, capacity)
-                    if n_dp > 1 and n_ps == 1
-                    else step_lib.make_densify_step(capacity))
+    densify_step = step_lib.make_densify_step(capacity)
     densify_replay_step = step_lib.make_densify_replay_step()
 
     bg = torch.tensor([1.0, 1.0, 1.0] if model_cfg.white_background
@@ -348,8 +345,6 @@ def _train_loop(model_cfg, opt, pipe, args, mesh, device, rank0, tb_writer,
                     # draws on every rank; the rows reshard after it
                     state, adam = sync_state()
                     state, adam = densify_step(state, adam, gen)
-                    mesh_lib.sync_replicas(mesh, tuple(mesh.axes), state,
-                                           adam)
                     ps_params = {k: mesh_lib.shard_rows(v, mesh, "ps")
                                  for k, v in state.params().items()}
                     ps_adam = _shard_adam(adam, mesh)

@@ -43,8 +43,7 @@ from gsplat_tpu_torch.model.knn import knn_indices
 from gsplat_tpu_torch.parallel import launch
 from gsplat_tpu_torch.parallel import mesh as mesh_lib
 from gsplat_tpu_torch.parallel.dp import own_sample
-from gsplat_tpu_torch.parallel.swin_dp import (make_dp_swin_densify_step,
-                                               make_dp_swin_train_step)
+from gsplat_tpu_torch.parallel.swin_dp import make_dp_swin_train_step
 from gsplat_tpu_torch.train import swin_step as sstep
 from gsplat_tpu_torch.train.config import (ModelConfig, OptimizationConfig,
                                            PipelineConfig, add_config_args,
@@ -396,9 +395,7 @@ def _train_windows(scene, model_cfg, opt, pipe, args, dump_path, device,
         else:
             step = sstep.make_swin_train_step(opt, s, scene.cameras_extent,
                                               arap_weights=arap_w)
-        densify = (sstep.make_swin_densify_step(capacity, args.swin_size)
-                   if mesh is None else make_dp_swin_densify_step(
-                       mesh, capacity, args.swin_size))
+        densify = sstep.make_swin_densify_step(capacity, args.swin_size)
         return (step, densify, sstep.make_swin_eval_step(s),
                 sstep.make_swin_grad_step(opt, s, scene.cameras_extent),
                 sstep.make_swin_apply_step(opt, scene.cameras_extent))

@@ -24,6 +24,7 @@ from hypothesis import strategies as st
 from gsplat_tpu_torch import renderer as trenderer
 from gsplat_tpu_torch.core import camera as tcamera
 from gsplat_tpu_torch.model import gaussians as tgauss
+from gsplat_tpu_torch.model import mcmc as tmcmc
 from gsplat_tpu_torch.raster import binning as tbinning
 from gsplat_tpu_torch.raster import cuda_ext
 from gsplat_tpu_torch.raster import rasterize as trasterize
@@ -1248,3 +1249,59 @@ def test_multi_cummax_cuda_restarts_when_epochs_run_out(cuda):
     assert torch.equal(tscan.multi_cummax(xc).cpu(), want)  # epoch limit-1
     assert torch.equal(tscan.multi_cummax(xc).cpu(), want)  # restarted
     assert tscan._LOOKBACK[key][1] == 1
+
+
+def zero_row_probs(rows=50_000, alive=49_500, seed=0):
+    """[rows] float32 densification probabilities: opacity-like values,
+    some zero rows, a zero row at each multi_cumsum tile join and zeros
+    past ``alive``."""
+    rng = np.random.default_rng(seed)
+    p = rng.uniform(0.005, 1.0, rows).astype(np.float32)
+    p[rng.uniform(size=rows) < 0.05] = 0.0
+    p[np.arange(tscan.CUMSUM_BLOCK, rows, tscan.CUMSUM_BLOCK)] = 0.0
+    p[alive:] = 0.0
+    return torch.from_numpy(p)
+
+
+@pytest.mark.gpu
+def test_template_sampler_on_card_is_reproducible(cuda):
+    """The densification's template draw twice from one seed on the card:
+    one multi_cumsum and one multi_cummax launch each, the same templates,
+    no zero-probability row; the searched CDF never decreases, is flat at
+    zero rows and equals the CPU's within the CDF's float32 rounding."""
+    probs = zero_row_probs().to(cuda)
+    before = (tscan.multi_cumsum.launches, tscan.multi_cummax.launches)
+    draws = []
+    for _ in range(2):
+        gen = torch.Generator(device=cuda).manual_seed(0)
+        draws.append(tmcmc._sample_templates(gen, probs, probs.shape[0]))
+    assert (tscan.multi_cumsum.launches,
+            tscan.multi_cummax.launches) == (before[0] + 2, before[1] + 2)
+    assert torch.equal(draws[0], draws[1])
+    assert int((probs[draws[0]] == 0).sum()) == 0
+    cdf = tmcmc._template_cdf(probs)
+    zero = torch.nonzero(probs[1:] == 0)[:, 0] + 1
+    assert bool((cdf[1:] >= cdf[:-1]).all())
+    assert torch.equal(cdf[zero], cdf[zero - 1])
+    want = tmcmc._template_cdf(probs.cpu())
+    assert float((cdf.cpu() - want).abs().max()) <= 1e-5 * float(want[-1])
+
+
+@pytest.mark.gpu
+def test_scatter_reduce_on_card_is_bit_reproducible(cuda):
+    """The scatter-add reduction of the per-slot gradients (200k slots into
+    100k rows, 30% padding) three times on the card: bit-equal, and within
+    2e-6 of the largest sum of the CPU's."""
+    rng = np.random.default_rng(9)
+    k, p1 = 200_000, 100_000
+    gid = rng.integers(0, p1, k).astype(np.int32)
+    gid[rng.uniform(size=k) < 0.3] = p1 - 1
+    dfeat = rng.normal(size=(9, k)).astype(np.float32)
+    dfeat[:, gid == p1 - 1] = 0.0
+    d, g = torch.from_numpy(dfeat), torch.from_numpy(gid)
+    outs = [trasterize._scatter_reduce(d.to(cuda), g.to(cuda), p1)
+            for _ in range(3)]
+    assert torch.equal(outs[0], outs[1]) and torch.equal(outs[0], outs[2])
+    want = trasterize._scatter_reduce(d, g, p1)
+    scale = float(want.abs().max())
+    assert float((outs[0].cpu() - want).abs().max()) / scale <= 2e-6

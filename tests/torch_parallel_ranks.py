@@ -18,16 +18,16 @@ import torch.distributed as dist
 from gsplat_tpu_torch.core.camera import make_camera
 from gsplat_tpu_torch.model import gaussians, optim, swin
 from gsplat_tpu_torch.parallel import mesh as mesh_lib
-from gsplat_tpu_torch.parallel.dp import (make_dp_densify_step,
-                                          make_dp_train_step)
+from gsplat_tpu_torch.parallel.dp import make_dp_train_step
 from gsplat_tpu_torch.parallel.mesh import Axis, Mesh
 from gsplat_tpu_torch.parallel.pshard import (make_pshard_render,
                                               make_pshard_train_step)
-from gsplat_tpu_torch.parallel.swin_dp import (make_dp_swin_densify_step,
-                                               make_dp_swin_train_step)
+from gsplat_tpu_torch.parallel.swin_dp import make_dp_swin_train_step
 from gsplat_tpu_torch.parallel.tileshard import (make_tileshard_render,
                                                  tileshard_num_dup)
 from gsplat_tpu_torch.raster.rasterize import RasterizeSettings
+from gsplat_tpu_torch.train import step as step_lib
+from gsplat_tpu_torch.train import swin_step
 from gsplat_tpu_torch.train.config import OptimizationConfig
 
 CPU = torch.device("cpu")
@@ -121,7 +121,7 @@ def _two_rank_cases(inp, mesh, out):
     _flat("dp_", s1.params(), out)
     out["dp_loss"] = m.loss.numpy()
     dstep = make_dp_train_step(mesh, OptimizationConfig(), settings(), 1.0)
-    densify = make_dp_densify_step(mesh, state.capacity)
+    densify = step_lib.make_densify_step(state.capacity)
     gen, s, a = _gen(0), state, optim.init(state.params())
     for it in range(1, 4):
         s, a, _ = dstep(s, a, gen, cams[dp_i], gts[dp_i], torch.zeros(3),
@@ -145,7 +145,7 @@ def _two_rank_cases(inp, mesh, out):
     out["sdp_loss"] = m.loss.numpy()
     sstep_n = make_dp_swin_train_step(mesh, OptimizationConfig(),
                                       settings(), 1.0)
-    sdens = make_dp_swin_densify_step(mesh, sw.capacity, 4)
+    sdens = swin_step.make_swin_densify_step(sw.capacity, 4)
     gen, s, a = _gen(0), sw, optim.init(sw.params())
     for it in range(1, 4):
         s, a, _ = sstep_n(s, a, gen, cams[dp_i], gts[dp_i], frames[dp_i],
