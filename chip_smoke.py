@@ -15,7 +15,7 @@ It builds the CUDA kernels from gsplat_tpu_torch/csrc, then
              scatter-max + the expand_scan kernel (2 k_dup >= 7 P)
     merge    --dup_budget 877,568 (raised by the 1.02 rule if a camera
              needs more): the merge_expand kernel (2 k_dup < 7 P)
-- trains in bench.py's two static settings (its recipes copied here):
+- trains in bench.py's two static settings (bench_torch.py's recipes):
     100k-800x800  100k Gaussians, 8 orbit cameras, 64x16 tiles; the
                   per-Gaussian gradient reduction is one scatter-add
     1m-1296x840   1M Gaussians with trained-scene opacity/scale
@@ -56,7 +56,13 @@ the result line is printed:
   socket       python -m gsplat_tpu_torch.viewer.serve per setting, 3 SIBR
                requests; reply bytes must equal the in-process image
   fps          frames/s over 3 windows of 48 frames per setting
+               (bench_torch.timed_windows)
   quality      the served frame vs the plain render of an f32 stream
+  bench_render bench_torch.render_stage in process (the bare 100k scene
+               at 1920x1088, 128x32 tiles: no dead rows, expand_scan),
+               counts zeroed: one expand_scan and one render_forward a
+               frame (8 probe, 8 warm, 3 x 48 timed), nothing else; the
+               probed num_dup against the TPU record (rel <= 1e-3)
   train_probe  per training setting (swin too, at frame 0): num_dup per
                camera against the TPU record (rel <= 1e-3, bench.py's
                gate), the probed k_dup
@@ -77,8 +83,9 @@ the result line is printed:
   kernel_yardstick  merge_expand beside its bound and torch.searchsorted
                per setting (owners only: a partial yardstick, not the same
                function)
-  train_small  tests/fixtures/hw_parity_golden.npz replayed without JAX:
-               bench.py's gates, then one split densify iteration
+  train_small  tests/fixtures/hw_parity_golden.npz replayed without JAX
+               (bench_torch.golden_replay and its gates), then one split
+               densify iteration
   train        per setting, counts zeroed: one warm step, 3 windows of
                fused steps (20 / 10), counts read and held to one blend
                forward, one blend backward and one merge_expand per step
@@ -172,6 +179,12 @@ the result line is printed:
                multi_cummax and torch.cummax on each setting's [1, C]
                relocation probabilities; of the 100k step's reduction by
                index_put_, index_add_ and sort + multi_cumsum
+  bench_cli    (last) python3 bench_torch.py at full size in a subprocess:
+               rc 0, one JSON line with bench.py's keys and ``device``,
+               every rate and time finite and > 0, the parity fields;
+               logged beside the in-process figures of the same settings
+               (train, swin_train, bench_render) and their ratios, ungated;
+               its launch counts are its own process's
 
 Then the card's name and power limit (nvidia-smi), the kernels line and
 {"ok": true, "device": {...}} as the last line. Exits non-zero with no
@@ -185,6 +198,7 @@ import gc
 import json
 import math
 import os
+import re
 import socket
 import statistics
 import subprocess
@@ -192,6 +206,8 @@ import sys
 import time
 
 import numpy as np
+
+import bench_torch as bench
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 DEVICE = "cuda"
@@ -219,66 +235,19 @@ def log(phase: str, **kw) -> None:
     print(json.dumps({"phase": phase, **kw}), flush=True)
 
 
-def card() -> str:
-    return subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"], capture_output=True, text=True,
-        check=True, timeout=60).stdout.strip().splitlines()[0]
+card = bench.card
 
 
 # ---------------------------------------------------------------- scene ----
-
-def scene_arrays(p: int, sh_degree: int, seed: int = 0):
-    """The __graft_entry__._make_scene recipe as raw numpy leaves (means,
-    log-scales, quaternions, opacity logits, SH): uniform cloud at z in
-    [2, 6], log-uniform scales, random quaternions, logits in [-2, 4], SH
-    DC around 1."""
-    rng = np.random.default_rng(seed)
-    means = rng.uniform(-1.2, 1.2, size=(p, 3)).astype(np.float32)
-    means[:, 2] = rng.uniform(2.0, 6.0, size=p)
-    log_scales = rng.uniform(-3.5, -2.0, size=(p, 3)).astype(np.float32)
-    quats = rng.normal(size=(p, 4)).astype(np.float32)
-    opa_logit = rng.uniform(-2, 4, size=p).astype(np.float32)
-    shs = (0.3 * rng.normal(size=(p, (sh_degree + 1) ** 2, 3))
-           ).astype(np.float32)
-    shs[:, 0, :] += 1.0
-    return means, log_scales, quats, opa_logit, shs
-
 
 def write_scene_ply(path: str, p: int, sh_degree: int, seed: int = 0):
     """The bench's render-stage model as a PLY."""
     from gsplat_tpu_torch.data import ply
 
-    means, log_scales, quats, opa_logit, shs = scene_arrays(p, sh_degree,
-                                                            seed)
+    means, log_scales, quats, opa_logit, shs = bench.scene_arrays(
+        p, sh_degree, seed)
     ply.save_gaussian_ply(path, means, shs[:, :1], shs[:, 1:],
                           opa_logit[:, None], log_scales, quats)
-
-
-def orbit_poses(n, radius=6.0, center=(0.0, 0.0, 4.0)):
-    """__graft_entry__._orbit_cameras' poses: n cameras on a circle around
-    the cloud, all looking at its center; (camera-to-world rotation,
-    position) each."""
-    c = np.asarray(center)
-    poses = []
-    for i in range(n):
-        th = 2 * np.pi * i / max(n, 1)
-        pos = c + radius * np.array([np.sin(th), 0.0, -np.cos(th)])
-        fwd = (c - pos) / radius
-        up = np.array([0.0, 1.0, 0.0])
-        right = np.cross(up, fwd)
-        right /= np.linalg.norm(right)
-        poses.append((np.stack([right, up, fwd], 1), pos))
-    return poses
-
-
-def orbit_cameras(n, w, h, device, radius=6.0, center=(0.0, 0.0, 4.0)):
-    """__graft_entry__._orbit_cameras: n cameras on a circle around the
-    cloud, all looking at its center."""
-    from gsplat_tpu_torch.core.camera import make_camera
-
-    return [make_camera(rcw, -rcw.T @ pos, 0.9, 0.9, w, h, device=device)
-            for rcw, pos in orbit_poses(n, radius, center)]
 
 
 # -------------------------------------------------------------- helpers ----
@@ -419,7 +388,7 @@ def probe_serving(card_name):
     write_scene_ply(ply_path, N_GAUSS, SH_DEGREE, seed=0)
     state = gaussians.load_ply(ply_path, capacity=CAP_MAX,
                                max_sh_degree=SH_DEGREE, device=DEVICE)
-    cams = orbit_cameras(8, WIDTH, HEIGHT, DEVICE)
+    cams = bench.orbit_cameras(8, WIDTH, HEIGHT, DEVICE)
     p = state.capacity
 
     # num_dup per camera; kernel inputs of camera 0
@@ -911,23 +880,65 @@ def quality(cap_slot, cap_render, served, card_name):
         max_abs=float((served - ref).abs().max()))
 
 
+# bench_torch's render stage (bench.py:337-376): the bare 100k scene (no
+# dead rows) at 1920x1088, 128x32 tiles, the budget its probe x 1.02;
+# num_dup / k_dup are the TPU records of the same stage (BENCH_r05.json)
+BENCH_RENDER_NAME = "bench-render-100k-1080p"
+BENCH_RENDER_TPU = dict(num_dup=859_464, k_dup=877_568)
+
+
+def bench_render_phase(wrappers, card_name):
+    """bench_torch.render_stage in process at its full size, counts zeroed
+    just before it and read just after: one expand_scan and one
+    render_forward a frame (the probe's, the warm pass's and the windows'),
+    nothing else; its probed num_dup held to the TPU's record. Returns
+    (launches, the stage's result)."""
+    import torch
+
+    cfg = bench.sizes(DEVICE)["render"]
+    for w in wrappers.values():
+        w.launches = 0
+    t0 = time.time()
+    out = bench.render_stage(DEVICE, np.random.default_rng(0))
+    torch.cuda.synchronize()
+    seconds = time.time() - t0
+    launches = {k: w.launches for k, w in wrappers.items()}
+    frames = 2 * cfg["cams"] + 3 * cfg["frames"]
+    want = {k: 0 for k in wrappers}
+    want.update(expand_scan=frames, render_forward=frames)
+    if launches != want:
+        raise AssertionError(f"{BENCH_RENDER_NAME}: launches {launches}, "
+                             f"expected {want}")
+    rel = abs(out["render_num_dup"] - BENCH_RENDER_TPU["num_dup"]) / \
+        BENCH_RENDER_TPU["num_dup"]
+    if rel > DUP_REL_GATE:
+        raise AssertionError(f"{BENCH_RENDER_NAME}: num_dup "
+                             f"{out['render_num_dup']} vs the TPU's "
+                             f"{BENCH_RENDER_TPU['num_dup']} (rel {rel:.2e})")
+    log("bench_render", card=card_name, setting=BENCH_RENDER_NAME,
+        frames=frames, launches=launches,
+        launches_per_frame={k: v / frames for k, v in launches.items()},
+        tpu_num_dup=BENCH_RENDER_TPU["num_dup"], num_dup_rel=rel,
+        k_dup=bench.render_k_dup(out["render_num_dup"]),
+        tpu_k_dup=BENCH_RENDER_TPU["k_dup"], seconds=seconds, **out)
+    return launches, out
+
+
 # ------------------------------------------------------------- training ----
 
-# The two static training settings: copies of bench.py's recipes
-# (bench.py:254-335 and :379-430), with numpy draws in bench.py's order.
-# num_dup / k_dup are the TPU records of the same scenes (BENCH_r05.json).
+# The two static training settings: bench.py's (bench.py:254-335 and
+# :379-430) at bench_torch's full sizes, built by bench_torch's recipes
+# with numpy draws in bench.py's order. num_dup / k_dup are the TPU records
+# of the same scenes (BENCH_r05.json).
 TRAIN = {
-    "100k-800x800": dict(p=100_000, width=800, height=800, cams=8, wit=20,
-                         tpu_num_dup=138_188, tpu_k_dup=154_880),
-    "1m-1296x840": dict(p=1_000_000, width=1296, height=840, cams=4,
-                        wit=10, tpu_num_dup=3_063_690,
-                        tpu_k_dup=3_431_424),
+    "100k-800x800": dict(bench.SIZES["cuda"]["train"], tpu_num_dup=138_188,
+                         tpu_k_dup=154_880),
+    "1m-1296x840": dict(bench.SIZES["cuda"]["train_1m"],
+                        tpu_num_dup=3_063_690, tpu_k_dup=3_431_424),
 }
-TRAIN_P_GT = 20_000
+TRAIN_P_GT = bench.SIZES["cuda"]["p_gt"]
 DUP_REL_GATE = 1e-3   # bench.py's dup_rel gate against the TPU counts
 TRAIN_TILE = (64, 16)
-TRAINED_STATS = os.path.join(ROOT, "tests", "fixtures", "trained_stats.npz")
-HW_GOLDEN = os.path.join(ROOT, "tests", "fixtures", "hw_parity_golden.npz")
 CLI_FIXTURE = os.path.join(ROOT, "tests", "fixtures", "quality_blender")
 # float operations per live (pixel, slot) pair, counted from
 # blend_kernels.cu: forward 2 offsets, 9 for the quadratic form, exp (2),
@@ -969,121 +980,30 @@ def kept_slot_share(feat, meta, visited, kw, block):
     return float(kept.float().mean())
 
 
-def probe_k_dup(need, chunk, headroom=1.12, floor=1 << 15):
-    """bench.py's budget rule: measured demand x 1.12, chunk-aligned."""
-    return -(-max(int(need * headroom), floor) // chunk) * chunk
-
-
-def make_scene_params(p, sh_degree, seed, device):
-    """__graft_entry__._make_scene as activated tensors (means, scales,
-    quats, opacities, shs)."""
-    import torch
-
-    from gsplat_tpu_torch.core.quaternion import normalize
-
-    means, log_scales, quats, opa_logit, shs = (
-        torch.as_tensor(a, device=device)
-        for a in scene_arrays(p, sh_degree, seed))
-    return (means, torch.exp(log_scales), normalize(quats),
-            torch.sigmoid(opa_logit), shs)
-
-
-def bench_gt_scene(rng, p_gt, device):
-    """bench.py's ground-truth scene (:266-274), activated."""
-    import torch
-
-    from gsplat_tpu_torch.core.quaternion import normalize
-
-    t = lambda a: torch.as_tensor(np.asarray(a, np.float32),  # noqa: E731
-                                  device=device)
-    means = t(rng.uniform(-0.9, 0.9, (p_gt, 3)))
-    scales = t(np.exp(rng.uniform(-3.2, -2.0, (p_gt, 3))))
-    quats = normalize(t(rng.normal(size=(p_gt, 4))))
-    opa = torch.sigmoid(t(rng.uniform(0, 3, p_gt)))
-    shs = t(np.concatenate([rng.uniform(-0.5, 1.5, (p_gt, 1, 3)),
-                            np.zeros((p_gt, 15, 3))], 1))
-    return means, scales, quats, opa, shs
-
-
-def trained_stats_state(p, sh, rng, device):
-    """bench.trained_stats_state with uniform positions: a 1M-capacity
-    state whose opacity and log-scale triples are drawn from the quantile
-    tables of a trained scene (tests/fixtures/trained_stats.npz), density-
-    corrected by -0.5 ln(P / N_source)."""
-    import dataclasses as dc
-
-    import torch
-
-    from gsplat_tpu_torch.model import gaussians
-
-    st = np.load(TRAINED_STATS)
-    pts = rng.uniform(-1, 1, (p, 3)).astype(np.float32)
-    state = gaussians.create_from_points(
-        pts, rng.uniform(0, 1, (p, 3)).astype(np.float32), capacity=p,
-        max_sh_degree=sh, device=device)
-    grid = np.linspace(0, 1, len(st["opacity_quantiles"]))
-    opa = np.interp(rng.uniform(0, 1, p).astype(np.float32), grid,
-                    st["opacity_quantiles"]).astype(np.float32)
-    opa = np.clip(opa, 1e-4, 1 - 1e-4)
-    sq = st["logscale_sorted_quantiles"]
-    u = rng.uniform(0, 1, p).astype(np.float32)
-    gridq = np.linspace(0, 1, len(sq))
-    triple = np.stack([np.interp(u, gridq, sq[:, i]) for i in range(3)], 1)
-    perm = rng.permuted(np.tile(np.arange(3), (p, 1)), axis=1)
-    logscale = np.take_along_axis(triple, perm, axis=1).astype(np.float32)
-    logscale += np.float32(-0.5 * np.log(max(p / max(int(st["n_alive"]), 1),
-                                             1.0)))
-    t = lambda a: torch.as_tensor(a, device=device)  # noqa: E731
-    return dc.replace(state, opacity=t(np.log(opa / (1 - opa))[:, None]),
-                      scaling=t(logscale))
-
-
 def build_training(card_name):
-    """Both settings: ground truths, initial states, probed budgets."""
-    import dataclasses as dc
-
-    import torch
-
-    from gsplat_tpu_torch import renderer
-    from gsplat_tpu_torch.model import gaussians
-    from gsplat_tpu_torch.raster import rasterize as rast
-
+    """Both settings (bench_torch.static_setup): ground truths, initial
+    states, probed budgets, each probe held to the TPU's record."""
     rng = np.random.default_rng(0)
-    bg = torch.zeros(3, device=DEVICE)
-    gt = bench_gt_scene(rng, TRAIN_P_GT, DEVICE)
+    gt = bench.bench_gt_scene(rng, TRAIN_P_GT, DEVICE)
     out = {}
     k_first = None
     for name, cfg in TRAIN.items():
         t0 = time.time()
-        cams = orbit_cameras(cfg["cams"], cfg["width"], cfg["height"],
-                             DEVICE)
-        base = rast.RasterizeSettings(
-            k_dup=8 * cfg["p"] if k_first is None else k_first,
-            tile_x=TRAIN_TILE[0], tile_y=TRAIN_TILE[1], chunk=128,
-            layout="chw")
-        with torch.no_grad():
-            gts = [rast.rasterize(*gt, c, SH_DEGREE, bg, base).image
-                   for c in cams]
         if k_first is None:
-            pts = rng.uniform(-1, 1, (cfg["p"], 3)).astype(np.float32)
-            state = gaussians.create_from_points(
-                pts, rng.uniform(0, 1, (cfg["p"], 3)).astype(np.float32),
-                capacity=cfg["p"], max_sh_degree=SH_DEGREE, device=DEVICE)
-            probe = base
+            state = bench.uniform_state(rng, cfg["p"], DEVICE)
         else:
-            state = trained_stats_state(cfg["p"], SH_DEGREE, rng, DEVICE)
-            probe = dc.replace(base, k_dup=1 << 21)
-        with torch.no_grad():
-            need = [int(renderer.render(c, state, bg, probe)["num_dup"])
-                    for c in cams]
-        settings = dc.replace(base, k_dup=probe_k_dup(max(need), 128))
+            state, _ = bench.trained_stats_state(cfg["p"], SH_DEGREE, rng,
+                                                 DEVICE)
+        st = bench.static_setup(DEVICE, gt, state, cfg,
+                                k_first or cfg["k_probe"], TRAIN_TILE)
+        need, settings, gts = st.pop("need"), st["settings"], st["gts"]
         if k_first is None:
             k_first = settings.k_dup
         rel = abs(max(need) - cfg["tpu_num_dup"]) / cfg["tpu_num_dup"]
         if rel > DUP_REL_GATE:
             raise AssertionError(f"{name}: num_dup {max(need)} vs the TPU's "
                                  f"{cfg['tpu_num_dup']} (rel {rel:.2e})")
-        out[name] = dict(cams=cams, gts=gts, state=state, settings=settings)
+        out[name] = st
         log("train_probe", card=card_name, setting=name,
             gaussians=state.n_alive, image=f"{cfg['width']}x{cfg['height']}",
             num_dup_per_camera=need, num_dup_max=max(need),
@@ -1367,111 +1287,24 @@ def check_large_tiles(st, card_name):
                   f"n_pix={kw['n_pix']} chunk={kw['chunk']}")
 
 
-# The golden's inference image carries the JAX kernel's bf16 log-scan of
-# T and bf16 colour matmul; the port composites in float32, so the two
-# differ by the golden's own rounding (61.13 dB on the CPU) while both sit
-# equally far from the float32 training image. bench.py's 62 dB gate held
-# Mosaic against the interpret mode of the same algorithm.
-INFER_GATE_DB = 60.0
-# Adam's first step moves each entry by lr * sign(grad): an entry whose
-# gradient is below this share of the leaf's largest has no sign the
-# golden's bf16-split arithmetic resolves (tile_kernel.py:168-176).
-SIGN_FLOOR = 2e-4
-
-
-def delta_rel_l2(delta, golden, grad):
-    """(rel-L2 of the Adam delta against the golden, the same over the
-    entries whose gradient sign is determined, count of the others)."""
-    d, g = delta.astype(np.float64), golden.astype(np.float64)
-    det = np.abs(grad) >= SIGN_FLOOR * np.abs(grad).max()
-
-    def rel(mask):
-        return float(np.linalg.norm((d - g)[mask])
-                     / (np.linalg.norm(g[mask]) + 1e-12))
-    return rel(np.ones_like(det)), rel(det), int((~det).sum())
-
-
 def train_small(card_name):
-    """hw_parity_golden.npz replayed through the port (the recipe of
-    scripts/gen_hw_parity_golden.py::build_inputs, without JAX): images,
-    loss, num_dup and the Adam deltas of one train step against the
-    golden, with bench.py's gates; then one split densify iteration on a
-    state of twice the capacity."""
-    import dataclasses as dc
-
-    import torch
-
+    """hw_parity_golden.npz replayed through the port
+    (bench_torch.golden_replay: images, loss, num_dup and the Adam deltas
+    of one train step against the golden, with its gates); then one split
+    densify iteration on a state of twice the capacity."""
     from gsplat_tpu_torch.model import gaussians, optim
-    from gsplat_tpu_torch.raster import rasterize as rast
     from gsplat_tpu_torch.train import step as step_lib
     from gsplat_tpu_torch.train.config import OptimizationConfig
 
-    golden = np.load(HW_GOLDEN)
-    p_model, w, h = 8192, 256, 256
-    scene = make_scene_params(4096, SH_DEGREE, 0, DEVICE)
-    cam = orbit_cameras(3, w, h, DEVICE)[1]
-    rng = np.random.default_rng(1)
-    pts = rng.uniform(-1.2, 1.2, (p_model, 3)).astype(np.float32)
-    pts[:, 2] = rng.uniform(2.0, 6.0, p_model)
-    colors = rng.uniform(0, 1, (p_model, 3)).astype(np.float32)
-    yy, xx = np.meshgrid(np.linspace(0, 1, h), np.linspace(0, 1, w),
-                         indexing="ij")
-    gt = torch.as_tensor(np.stack([xx, yy, 0.5 * (xx + yy)], 0).astype(
-        np.float32), device=DEVICE)
-    bg = torch.zeros(3, device=DEVICE)
-    settings = rast.RasterizeSettings(k_dup=1 << 16, tile_x=64, tile_y=16,
-                                      chunk=128)
-    with torch.no_grad():
-        train_img = rast.rasterize(*scene, cam, SH_DEGREE, bg,
-                                   settings).image
-        infer_img = rast.rasterize(*scene, cam, SH_DEGREE, bg, dc.replace(
-            settings, inference=True)).image.float()
-    state = gaussians.create_from_points(pts, colors, p_model, SH_DEGREE,
-                                         device=DEVICE)
-    opt = OptimizationConfig()
-    gen = torch.Generator(device=DEVICE)
-    gen.manual_seed(7)
-    # the fused step as grad + apply, to keep the gradients
-    grads, m = step_lib.make_grad_step(opt, settings, 4.0)(
-        state, cam, gt, bg, 2)
-    new, _ = step_lib.make_apply_step(opt, 4.0)(
-        state, optim.init(state.params()), grads, gen, 100.0, True)
-
-    def psnr_db(a, b):
-        mse = float(np.mean((np.clip(a, 0, 1) - np.clip(b, 0, 1)) ** 2))
-        return min(-10.0 * np.log10(mse + 1e-30), 99.0)
-
-    host = lambda t: t.detach().cpu().numpy()  # noqa: E731
-    res = dict(
-        train_psnr=psnr_db(host(train_img), golden["train_img"]),
-        infer_psnr=psnr_db(host(infer_img), golden["infer_img"]),
-        infer_vs_golden_train_psnr=psnr_db(
-            host(infer_img), golden["train_img"].transpose(2, 0, 1)),
-        golden_infer_vs_golden_train_psnr=psnr_db(
-            golden["infer_img"], golden["train_img"].transpose(2, 0, 1)),
-        loss=float(m.loss), golden_loss=float(golden["loss"]),
-        num_dup=int(m.num_dup), golden_num_dup=int(golden["num_dup"]))
-    for key, leaf in (("dopacity", "opacity"), ("dscaling", "scaling"),
-                      ("dxyz", "xyz")):
-        raw, det, n_undet = delta_rel_l2(
-            host(getattr(new, leaf) - getattr(state, leaf)), golden[key],
-            host(grads[leaf]))
-        res[f"{key}_rel"], res[f"{key}_rel_determined"] = raw, det
-        res[f"{key}_undetermined_entries"] = n_undet
-    res["loss_rel"] = abs(res["loss"] - res["golden_loss"]) / abs(
-        res["golden_loss"])
-    res["num_dup_rel"] = abs(res["num_dup"] - res["golden_num_dup"]) / max(
-        res["golden_num_dup"], 1)
-    gates = [res["train_psnr"] >= 85.0, res["infer_psnr"] >= INFER_GATE_DB,
-             res["loss_rel"] <= 1e-4, res["num_dup_rel"] <= 1e-3,
-             res["dopacity_rel_determined"] <= 3e-2,
-             res["dscaling_rel_determined"] <= 3e-2]
-    if not all(gates):
-        raise AssertionError(f"train_small golden gates failed: {res}")
+    inp = bench.golden_inputs(DEVICE)
+    res = bench.golden_replay(inp)
 
     # one split densify iteration at twice the capacity
-    big = gaussians.create_from_points(pts, colors, 2 * p_model, SH_DEGREE,
-                                       device=DEVICE)
+    p_model = bench.GOLDEN["p_model"]
+    cam, gt, bg, gen = inp["cam"], inp["gt"], inp["bg"], inp["gen"]
+    settings, opt = inp["settings"], OptimizationConfig()
+    big = gaussians.create_from_points(inp["pts"], inp["colors"],
+                                       2 * p_model, SH_DEGREE, device=DEVICE)
     adam = optim.init(big.params())
     grads, _ = step_lib.make_grad_step(opt, settings, 4.0)(
         big, cam, gt, bg, SH_DEGREE)
@@ -1513,32 +1346,19 @@ def train_setting(name, st, wrappers, card_name):
     state, adam, m = step(state, adam, gen, cams[0], gts[0], bg, 1.0,
                           SH_DEGREE)
     torch.cuda.synchronize()
-    ms, losses, dups = [], [], []
-    it = 0
-    for _ in range(3):
-        t0 = time.perf_counter()
-        for _ in range(cfg["wit"]):
-            state, adam, m = step(state, adam, gen, cams[it % len(cams)],
-                                  gts[it % len(cams)], bg, float(it + 2),
-                                  SH_DEGREE)
-            dups.append(m.num_dup)
-            it += 1
-        losses.append(float(m.loss))     # synchronises
-        ms.append((time.perf_counter() - t0) * 1e3 / cfg["wit"])
+    state, adam, ms, losses, max_dup = bench.static_windows(
+        step, state, adam, gen, st, cfg["wit"])
     torch.cuda.synchronize()
     launches = {k: w.launches for k, w in wrappers.items()}
-    steps = 1 + 3 * cfg["wit"]
+    it = 3 * cfg["wit"]
+    steps = 1 + it
     segsum = "1m" in name
     want = {k: 0 for k in wrappers}
     want.update(tile_blend_forward=steps, tile_blend_backward=steps,
                 merge_expand=steps, multi_cumsum=steps if segsum else 0)
     if launches != want:
         raise AssertionError(f"{name}: launches {launches}, expected {want}")
-    if not all(math.isfinite(x) for x in losses) or len(set(losses)) != 3:
-        raise AssertionError(f"{name}: window losses {losses}")
-    max_dup = max(int(d) for d in dups)
-    if max_dup > settings.k_dup:
-        raise AssertionError(f"{name}: num_dup {max_dup} > {settings.k_dup}")
+    bench.check_windows(name, losses, max_dup, settings.k_dup)
 
     # one untimed split densify iteration (grad -> densify -> Adam +
     # noise), counts zeroed before it: the step's kernels and one
@@ -1731,8 +1551,8 @@ def write_eval_scene(root, state):
         1: colmap.ColmapCamera(1, "PINHOLE", w, h,
                                np.array([focal, focal, w / 2, h / 2]))})
     imgs = {}
-    for i, (rcw, pos) in enumerate(orbit_poses(n, radius=4.0,
-                                                center=(0.0, 0.0, 0.0))):
+    for i, (rcw, pos) in enumerate(bench.orbit_poses(
+            n, radius=4.0, center=(0.0, 0.0, 0.0))):
         imgs[i + 1] = colmap.ColmapImage(
             i + 1, colmap.rotmat2qvec(rcw.T), -rcw.T @ pos, 1,
             f"view_{i:03d}.png")
@@ -1742,7 +1562,7 @@ def write_eval_scene(root, state):
         rng.uniform(-1, 1, (EVAL["points"], 3)),
         rng.integers(0, 256, (EVAL["points"], 3)).astype(np.uint8))
     info = readers.read_colmap_scene(src, images=EVAL["images"])
-    gt = bench_gt_scene(rng, TRAIN_P_GT, DEVICE)
+    gt = bench.bench_gt_scene(rng, TRAIN_P_GT, DEVICE)
     settings = rast.RasterizeSettings(k_dup=4_000_000, tile_x=64,
                                       tile_y=16, chunk=128)
     bg = torch.zeros(3, device=DEVICE)
@@ -1959,12 +1779,13 @@ def eval_phase(state, card_name):
 
 # ---------------------------------------------------------------- swin ----
 
-# bench.py's SwinGS stage (bench.py:432-493): 200k immature rows and a
-# 200k-row matured ring (a 400k-row union), swin 8, SH degree 1, deform,
-# 1280x720, 4 orbit cameras, 64x16 tiles, spatial_lr_scale 4.0; num_dup /
-# k_dup are the TPU records of the same scene (BENCH_r05.json's tail).
-SWIN = dict(cap=200_000, sh=1, lifespan=8, width=1280, height=720, cams=4,
-            wit=10, tpu_num_dup=261_237, tpu_k_dup=313_600, frames=16)
+# bench.py's SwinGS stage (bench.py:432-493) at bench_torch's full size:
+# 200k immature rows and a 200k-row matured ring (a 400k-row union), swin
+# 8, SH degree 1, deform, 1280x720, 4 orbit cameras, 64x16 tiles,
+# spatial_lr_scale 4.0; num_dup / k_dup are the TPU records of the same
+# scene (BENCH_r05.json's tail).
+SWIN = dict(bench.SIZES["cuda"]["swin"], tpu_num_dup=261_237,
+            tpu_k_dup=313_600, frames=16)
 SWIN_NAME = "swin-200k-1280x720"
 DYN_FIXTURE = os.path.join(ROOT, "tests", "fixtures", "quality_cudaport_dyn")
 # tests/test_stream_semantic.py:45-54
@@ -1977,55 +1798,25 @@ SWIN_CLI_FLAGS = ["--iterations", "150", "--genesis_iterations", "300",
 
 
 def build_swin(rng, k_gt, card_name):
-    """The swin setting: the ground truth (_make_scene(20k, 1, seed=1)
-    through the training path at the 100k setting's budget, as bench.py
-    renders it), the state from the next draws of bench.py's ``rng``, the
-    frame-0 probe of num_dup and the budget (headroom 1.2)."""
-    import dataclasses as dc
-
-    import torch
-
-    from gsplat_tpu_torch import renderer
-    from gsplat_tpu_torch.model import swin
-    from gsplat_tpu_torch.raster import rasterize as rast
-
+    """The swin setting (bench_torch.swin_setup: the state from the next
+    draws of bench.py's ``rng``, the ground truths at the 100k setting's
+    budget ``k_gt``), its frame-0 probe held to the TPU's record."""
     t0 = time.time()
     cfg = SWIN
-    bg = torch.zeros(3, device=DEVICE)
-    cams = orbit_cameras(cfg["cams"], cfg["width"], cfg["height"], DEVICE)
-    base = rast.RasterizeSettings(k_dup=k_gt, tile_x=TRAIN_TILE[0],
-                                  tile_y=TRAIN_TILE[1], chunk=128,
-                                  layout="chw")
-    scene = make_scene_params(TRAIN_P_GT, cfg["sh"], 1, DEVICE)
-    with torch.no_grad():
-        gts = [rast.rasterize(*scene, c, cfg["sh"], bg, base).image
-               for c in cams]
-    cap = cfg["cap"]
-    pts = rng.uniform(-1, 1, (cap, 3)).astype(np.float32)
-    cols = rng.uniform(0, 1, (cap, 3)).astype(np.float32)
-    state = swin.create_from_points(pts, cols, cap, cfg["sh"],
-                                    max_lifespan=cfg["lifespan"],
-                                    buffer_size=cap, deform=True,
-                                    device=DEVICE)
-    probe = dc.replace(base, k_dup=1 << 20, layout="hwc")
-    with torch.no_grad():
-        need = [int(renderer.deformable_render(c, state, 0.0, bg,
-                                               probe)["num_dup"])
-                for c in cams]
-    settings = dc.replace(probe, k_dup=probe_k_dup(max(need), 128,
-                                                   headroom=1.2))
+    st = bench.swin_setup(DEVICE, rng, cfg, TRAIN_P_GT, k_gt, TRAIN_TILE)
+    need, settings, state = st.pop("need"), st["settings"], st["state"]
     rel = abs(max(need) - cfg["tpu_num_dup"]) / cfg["tpu_num_dup"]
     if rel > DUP_REL_GATE:
         raise AssertionError(f"swin: num_dup {max(need)} vs the TPU's "
                              f"{cfg['tpu_num_dup']} (rel {rel:.2e})")
     log("train_probe", card=card_name, setting=SWIN_NAME,
-        immature=state.im.n_alive, union_rows=2 * cap,
+        immature=state.im.n_alive, union_rows=2 * cfg["cap"],
         image=f"{cfg['width']}x{cfg['height']}", num_dup_per_camera=need,
         num_dup_max=max(need), tpu_num_dup=cfg["tpu_num_dup"],
         num_dup_rel=rel, k_dup=settings.k_dup, tpu_k_dup=cfg["tpu_k_dup"],
-        gt_means=[round(float(g.mean()), 5) for g in gts],
+        gt_means=[round(float(g.mean()), 5) for g in st["gts"]],
         seconds=time.time() - t0)
-    return dict(cams=cams, gts=gts, state=state, settings=settings)
+    return st
 
 
 def capture_swin(st):
@@ -2052,30 +1843,6 @@ def capture_swin(st):
     cap = {k: v[0] for k, v in store.items() if v}
     cap["merge_expand"] = merge[0][0]
     return cap
-
-
-def swin_steps(step, state, adam, st, gen, windows, first_frame, it0):
-    """``windows`` x SWIN["wit"] fused steps, frame first_frame + it % 8,
-    camera it % 4; returns (state, adam, window ms/step, window losses,
-    max num_dup, iterations done)."""
-    import torch
-
-    bg = torch.zeros(3, device=DEVICE)
-    ms, losses, dups = [], [], []
-    it = it0
-    for _ in range(windows):
-        t0 = time.perf_counter()
-        for _ in range(SWIN["wit"]):
-            state, adam, m = step(
-                state, adam, gen, st["cams"][it % 4], st["gts"][it % 4], bg,
-                float(it + 2), float(first_frame + it % SWIN["lifespan"]),
-                SWIN["sh"])
-            dups.append(m.num_dup)
-            it += 1
-        losses.append(float(m.loss))     # synchronises
-        ms.append((time.perf_counter() - t0) * 1e3 / SWIN["wit"])
-    torch.cuda.synchronize()
-    return state, adam, ms, losses, max(int(d) for d in dups), it
 
 
 def swin_launches_ok(launches, steps, where):
@@ -2109,16 +1876,13 @@ def swin_train(st, wrappers, card_name):
                           torch.zeros(3, device=DEVICE), 1.0, 0.0,
                           SWIN["sh"])
     torch.cuda.synchronize()
-    state, adam, ms, losses, max_dup, it = swin_steps(
-        step, state, adam, st, gen, 3, 0, 0)
+    state, adam, ms, losses, max_dup = bench.swin_windows(
+        step, state, adam, gen, st, SWIN)
+    torch.cuda.synchronize()
     launches = {k: w.launches for k, w in wrappers.items()}
-    steps = 1 + it
+    steps = 1 + 3 * SWIN["wit"]
     swin_launches_ok(launches, steps, "swin_train")
-    if not all(math.isfinite(x) for x in losses) or len(set(losses)) != 3:
-        raise AssertionError(f"swin_train: window losses {losses}")
-    if max_dup > settings.k_dup:
-        raise AssertionError(f"swin_train: num_dup {max_dup} > "
-                             f"{settings.k_dup}")
+    bench.check_windows("swin_train", losses, max_dup, settings.k_dup)
     log("swin_train", card=card_name, setting=SWIN_NAME, steps=steps,
         window_ms_per_step=ms, ms_per_step_median=statistics.median(ms),
         it_per_s_median=1e3 / statistics.median(ms), window_losses=losses,
@@ -2187,15 +1951,14 @@ def swin_slide(st, state, adam, gen, wrappers, card_name):
                                           st["settings"], 4.0)
     for w in wrappers.values():
         w.launches = 0
-    state, adam, ms, losses, max_dup, steps = swin_steps(
-        step, state, adam, st, gen, 1, mgr.frame_start, 0)
+    state, adam, ms, losses, max_dup = bench.swin_windows(
+        step, state, adam, gen, st, SWIN, windows=1,
+        first_frame=mgr.frame_start)
+    torch.cuda.synchronize()
     launches = {k: w.launches for k, w in wrappers.items()}
+    steps = SWIN["wit"]
     swin_launches_ok(launches, steps, "swin_slide")
-    if not all(math.isfinite(x) for x in losses):
-        raise AssertionError(f"swin_slide: losses {losses}")
-    if max_dup > st["settings"].k_dup:
-        raise AssertionError(f"swin_slide: num_dup {max_dup} > "
-                             f"{st['settings'].k_dup}")
+    bench.check_windows("swin_slide", losses, max_dup, st["settings"].k_dup)
     with torch.no_grad():
         out = renderer.deformable_render(
             st["cams"][0], state, float(mgr.frame_start),
@@ -3119,7 +2882,8 @@ def parallel_inputs(setups, swin_st, eval_state, card_name):
                 mean_grad=smean)
     del sgrads
 
-    rcw, pos = orbit_poses(1, radius=4.0, center=(0.0, 0.0, 0.0))[0]
+    rcw, pos = bench.orbit_poses(1, radius=4.0,
+                                 center=(0.0, 0.0, 0.0))[0]
     cam = make_camera(rcw, -rcw.T @ pos, 0.9, 0.9, EVAL["width"],
                       EVAL["height"], device=DEVICE)
     ts_settings = make_settings(PipelineConfig(), EVAL["cap"])
@@ -3585,6 +3349,74 @@ def parallel_phase(setups, swin_st, eval_state, card_name):
     return launches
 
 
+# bench.py's result line (bench.py:495-525) and bench_torch's ``device``
+BENCH_KEYS = ("metric", "value", "unit", "vs_baseline", "config")
+BENCH_CONFIG_KEYS = (
+    "gaussians", "image", "tile", "backend", "device", "k_dup",
+    "ms_per_iter", "windows_it_per_s", "render_fps_1080p", "render_image",
+    "render_num_dup", "render_ms", "train_1m_ms_per_iter",
+    "train_1m_vs_anchor", "train_1m_workload", "train_1m_gaussians",
+    "train_1m_image", "train_1m_num_dup", "train_1m_windows_ms",
+    "swin_ms_per_iter", "swin_cap", "swin_image", "swin_windows_ms",
+    "hw_parity_psnr", "hw_parity_train_psnr", "hw_parity_infer_psnr",
+    "hw_parity_loss_rel", "hw_parity_param_delta_rel",
+    "hw_parity_param_delta_rel_masked")
+# its rates and times (each must be finite and > 0) and parity fields
+BENCH_RATES = ("ms_per_iter", "windows_it_per_s", "render_fps_1080p",
+               "render_ms", "train_1m_ms_per_iter", "train_1m_windows_ms",
+               "swin_ms_per_iter", "swin_windows_ms")
+BENCH_CLI_TIMEOUT = 600
+
+
+def bench_cli_phase(in_process, card_name):
+    """``python3 bench_torch.py`` at full size in a process of its own
+    (after the build, so it finds the kernels built): rc 0, exactly one
+    JSON line on stdout with bench.py's keys and ``device``, every rate and
+    time finite and > 0, the parity fields finite. Its kernels' launches
+    are that process's own and are not counted here. The line is logged
+    beside ``in_process``, the figures this process measured in the same
+    settings (``train``, ``swin_train``, ``bench_render``), with the ratio
+    of each pair; no gate on the ratios, since the two processes carry
+    different host work (a fresh process has run nothing else)."""
+    import torch
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = time.time()
+    res = subprocess.run([sys.executable,
+                          os.path.join(ROOT, "bench_torch.py")],
+                         cwd=ROOT, capture_output=True, text=True,
+                         timeout=BENCH_CLI_TIMEOUT)
+    seconds = time.time() - t0
+    with open(os.path.join(WORK, "bench_torch.log"), "w") as f:
+        f.write(res.stderr)
+    lines = res.stdout.splitlines()
+    if res.returncode != 0 or len(lines) != 1:
+        raise AssertionError(f"bench_cli: rc {res.returncode}, stdout "
+                             f"{res.stdout[-2000:]!r}, stderr "
+                             f"{res.stderr[-3000:]}")
+    out = json.loads(lines[0])
+    cfg = out.get("config", {})
+    missing = [k for k in BENCH_KEYS if k not in out] + [
+        k for k in BENCH_CONFIG_KEYS if k not in cfg]
+    if missing:
+        raise AssertionError(f"bench_cli: missing {missing}, line {out}")
+    numbers = [out["value"]] + [x for k in BENCH_RATES
+                                for x in np.ravel(cfg[k]).tolist()]
+    parity = [cfg[k] for k in BENCH_CONFIG_KEYS if k.startswith("hw_")]
+    if not all(math.isfinite(x) and x > 0 for x in numbers) or \
+            not all(math.isfinite(x) for x in parity):
+        raise AssertionError(f"bench_cli: a rate or time not finite and "
+                             f"> 0, or a parity field not finite: {out}")
+    log("bench_cli", card=card_name, seconds=seconds, rc=res.returncode,
+        note="launch counts are the bench process's own, not counted here",
+        stage_seconds={m[1]: float(m[2]) for m in re.finditer(
+            r"stage: (\w+_stage): ([\d.]+) s", res.stderr)},
+        result=out, in_process=in_process,
+        ratio_bench_over_in_process={k: cfg[k] / v
+                                     for k, v in in_process.items()})
+
+
 def main() -> int:
     try:
         import torch
@@ -3669,15 +3501,13 @@ def main() -> int:
     fps = {}
     for setting, fn in render_fns.items():
         for cam in cams:
-            img = fn(cam)
+            fn(cam)
         torch.cuda.synchronize()
-        windows = []
-        for _ in range(3):
-            t0 = time.time()
-            for i in range(48):
-                img = fn(cams[i % len(cams)])
-            torch.cuda.synchronize()
-            windows.append(48 / (time.time() - t0))
+        ms, _ = bench.timed_windows(
+            lambda i: fn(cams[i % len(cams)]),  # noqa: B023
+            bench.SIZES["cuda"]["render"]["frames"],
+            lambda _: torch.cuda.synchronize())
+        windows = [1e3 / x for x in ms]
         fps[setting] = statistics.median(windows)
         clocks = subprocess.run(
             ["nvidia-smi", "--query-gpu=clocks.sm,power.draw,power.limit,"
@@ -3693,6 +3523,9 @@ def main() -> int:
     quality(cap_slot=store["_slot_features"][0],
             cap_render=cap["render_forward"],
             served=images["expand"][0], card_name=card_name)
+    # bench_torch's render stage in process: the bare 100k scene at 1080p
+    launches[BENCH_RENDER_NAME], bench_render = bench_render_phase(
+        wrappers, card_name)
 
     # ---- training: settings, kernels vs plain, the golden replay
     setups, rng = build_training(card_name)
@@ -3782,6 +3615,13 @@ def main() -> int:
     torch.cuda.empty_cache()
     more_launches["parallel"] = parallel_phase(setups, swin_st, eval_state,
                                                card_name)
+    # ---- bench_torch.py at full size in a process of its own, beside the
+    # in-process figures of the same settings
+    del setups, swin_st, eval_state
+    bench_cli_phase({"ms_per_iter": step_ms["100k-800x800"],
+                     "train_1m_ms_per_iter": step_ms["1m-1296x840"],
+                     "swin_ms_per_iter": swin_ms,
+                     "render_ms": bench_render["render_ms"]}, card_name)
     for name in wrappers:
         kernels[name]["launches"] = sum(
             n.get(name, 0) for group in (launches, train_launches,

@@ -346,9 +346,11 @@ def test_train_swin_refuses_later_slice_options(tmp_path, monkeypatch,
 
 
 def test_swin_modules_import_with_jax_blocked():
-    """The SwinGS slice imports with jax and gsplat_tpu made unimportable."""
+    """The SwinGS slice, chip_smoke and bench_torch import with jax,
+    gsplat_tpu and the JAX entry scripts made unimportable."""
     code = ("import sys\n"
-            "for m in ('jax', 'jaxlib', 'gsplat_tpu'):\n"
+            "for m in ('jax', 'jaxlib', 'gsplat_tpu', 'bench',\n"
+            "          '__graft_entry__'):\n"
             "    sys.modules[m] = None\n"
             "import gsplat_tpu_torch.train.train_swin\n"
             "import gsplat_tpu_torch.train.train_static\n"
@@ -363,7 +365,8 @@ def test_swin_modules_import_with_jax_blocked():
             "import gsplat_tpu_torch.eval.render_stream\n"
             "import gsplat_tpu_torch.model.swin\n"
             "import gsplat_tpu_torch.renderer\n"
-            "import chip_smoke\n")
+            "import chip_smoke\n"
+            "import bench_torch\n")
     res = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
                          capture_output=True, text=True, timeout=300)
     assert res.returncode == 0, res.stderr[-2000:]

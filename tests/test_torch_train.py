@@ -282,7 +282,7 @@ def test_grad_and_apply_step_match_hw_parity_golden():
     sys.path.insert(0, os.path.join(ROOT, "scripts"))
     import gen_hw_parity_golden as gold
 
-    import chip_smoke
+    import bench_torch
 
     golden = np.load(gold.OUT)
     from gsplat_tpu_torch.core import camera as tcamera
@@ -321,7 +321,7 @@ def test_grad_and_apply_step_match_hw_parity_golden():
     for key, leaf in (("dxyz", "xyz"), ("dopacity", "opacity"),
                       ("dscaling", "scaling")):
         delta = (getattr(new, leaf) - getattr(state, leaf)).numpy()
-        _, det_rel, n_undet = chip_smoke.delta_rel_l2(
+        _, det_rel, n_undet = bench_torch.delta_rel_l2(
             delta, golden[key], grads[leaf].numpy())
         assert det_rel <= 3e-2, (key, det_rel)
         assert n_undet <= 0.01 * delta.size, (key, n_undet)
