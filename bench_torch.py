@@ -130,6 +130,31 @@ def generator(device, seed: int):
     return gen
 
 
+def peak_gb(device, reset: bool = False):
+    """Peak allocated GB on the card since the last reset (None on the
+    CPU); with ``reset`` a new stretch starts."""
+    import torch
+
+    if torch.device(device).type != "cuda":
+        return None
+    peak = torch.cuda.max_memory_allocated(device) / 1e9
+    if reset:
+        torch.cuda.reset_peak_memory_stats(device)
+    return peak
+
+
+def kernel_launches() -> dict:
+    """Each hand-kernel wrapper's launch count (they count on the card
+    only)."""
+    from gsplat_tpu_torch.raster import scan_kernel, tile_kernel
+
+    return {name: getattr(mod, name).launches for mod, names in (
+        (scan_kernel, ("expand_scan", "merge_expand", "multi_cumsum",
+                       "multi_cummax")),
+        (tile_kernel, ("tile_blend_forward", "tile_blend_backward",
+                       "render_forward"))) for name in names}
+
+
 def sizes(device) -> dict:
     import torch
 

@@ -151,6 +151,30 @@ the result line is printed:
                zeroed before it; arap_loss and its gradient on the card
                vs the CPU (1e-5 / 1e-4); knn_indices' time over the
                200k immature rows and the 400k union rows
+  soak         scripts/torch_soak_30k.py's set-up at full size (cap 100k,
+               800x800, a 20k-Gaussian GT, 24 cameras, 3 held out) and its
+               loop for 1,200 iterations (7 densifications from 600, SH
+               degree 1 at 1,000, held-out PSNR at 600 and 1,200, the live
+               budget policy), counts zeroed: every checked loss finite,
+               n_alive as densify's +5% rule says, the PSNR at 1,200 above
+               the PSNR at 600, no overflow after a budget change, one
+               blend forward and one owner expansion a render, one blend
+               backward a step, one multi_cummax a template draw; then
+               one step and one densification from the final (just
+               densified) state, the blends, the owner expansion and the
+               draws' multi_cumsum and multi_cummax held against their
+               plain versions (the kernel phase's gates)
+  soak_swin    scripts/torch_soak_swin.py at full width (cap 200k, swin 8,
+               1280x720, a moving 100k-Gaussian GT, 4 cameras) on
+               soak_swin.py's CPU schedule (12 frames, genesis 60, windows
+               30): genesis, decay_genesis, every evolve, mature_rest,
+               then playback, counts zeroed before each: window losses
+               finite, the first evolve streams all 200k genesis rows and
+               each later tick 25k, the stream holds their sum with
+               mature_rest's, one blend backward and one multi_cumsum a
+               step, playback finite (its PSNR against the GT logged, not
+               gated); the playback frame's blend forward and owner
+               expansion held against their plain versions
   parallel     (after the profiles, in processes of their own) four gloo
                ranks sharing the card: dp, pshard and dp x ps (2 x 2) at
                train-1m, swin-dp at the swin setting, a tileshard render
@@ -2707,6 +2731,291 @@ def arap_phase(st, state, wrappers, card_name):
 
 # ------------------------------------------------------------- parallel ----
 
+# The long-run soaks (scripts/torch_soak_30k.py, scripts/torch_soak_swin.py)
+# at full width, cut in length: the 30k soak's first 1,200 iterations
+# (across densify_from_iter: 7 densifications, SH degree 1 at 1,000, two
+# held-out evals) and the swin soak on soak_swin.py's CPU schedule (12
+# frames, genesis 60, windows 30)
+SOAK = dict(iterations=1200, report_every=600)
+SOAK_SWIN = dict(cap=200_000, frames=12, swin_size=8, genesis_iters=60,
+                 window_iters=30)
+
+
+def load_script(name):
+    """scripts/<name>.py as a module (scripts/ is no package)."""
+    import importlib.util
+
+    spec = importlib.util.spec_from_file_location(
+        name, os.path.join(ROOT, "scripts", f"{name}.py"))
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def expected_n_alive(n0, cap, densifications):
+    """n_alive after ``densifications`` of add_new_gs's +5% to the cap
+    (relocation keeps the count)."""
+    n = n0
+    for _ in range(densifications):
+        n = max(min(cap, int(np.float32(1.05) * np.float32(n))), n)
+    return n
+
+
+def check_owner_expansion(name, store, card_name):
+    """The recorded owner expansion (merge_expand or expand_scan, whichever
+    binning took) bit-equal to its plain version; its log fields."""
+    import torch
+
+    from gsplat_tpu_torch.raster import scan_kernel
+
+    with torch.no_grad():
+        if store["merge_expand"]:
+            entry = check_merge_expand(*store["merge_expand"][0][0],
+                                       card_name, setting=name)
+            return {"merge_expand": entry["max_abs_err"]}
+        marks, base_in = store["expand_scan"][0][0]
+        err = check_expand(scan_kernel.expand_scan, marks, base_in,
+                           scan_kernel.expand_scan_plain(marks, base_in))
+        log("kernel", card=card_name, setting=name, name="expand_scan",
+            max_abs_err=err, shape=f"K={marks.shape[0]}",
+            repeat_bit_equal=True)
+        return {"expand_scan": err}
+
+
+@contextlib.contextmanager
+def capture_step(store):
+    """Record the kernel inputs of the renders and steps inside: the
+    blends' (and multi_cumsum's) launches under store["ext"], binning's
+    owner expansion under store["merge_expand"] / store["expand_scan"]."""
+    from gsplat_tpu_torch.raster import binning
+
+    ext = {"blend_forward": [], "blend_backward": [], "multi_cumsum": []}
+    store.update(ext=ext, merge_expand=[], expand_scan=[])
+    with capture_ext(ext), \
+            capture(binning, "merge_expand", store["merge_expand"]), \
+            capture(binning, "expand_scan", store["expand_scan"]):
+        yield
+
+
+def check_template_scans(name, probs, card_name):
+    """A template draw's two scans on its own probabilities: multi_cumsum
+    within 2e-3 + 1e-5 |x| of a float64 cumsum, multi_cummax on the CDF's
+    bits equal to plain; each twice bit-equal."""
+    import torch
+
+    from gsplat_tpu_torch.raster import scan_kernel
+
+    x = probs.detach().contiguous()[None]
+    raw = scan_kernel.multi_cumsum(x)
+    ref = torch.cumsum(x.double(), dim=1)
+    err = (raw.double() - ref).abs()
+    bits = torch.where(x > 0, raw, torch.zeros_like(raw)).view(torch.int32)
+    got = scan_kernel.multi_cummax(bits)
+    ok = (bool((err <= 2e-3 + 1e-5 * ref.abs()).all())
+          and torch.equal(raw, scan_kernel.multi_cumsum(x))
+          and torch.equal(got, scan_kernel.multi_cummax_plain(bits))
+          and torch.equal(got, scan_kernel.multi_cummax(bits)))
+    if not ok:
+        raise AssertionError(f"{name}: a template draw's scans differ from "
+                             f"plain or from themselves (cumsum max abs "
+                             f"{float(err.max())})")
+    log("kernel", card=card_name, setting=name, name="multi_cumsum+"
+        "multi_cummax", shape=f"n=1 K={x.shape[1]} (a template draw)",
+        cumsum_max_abs_err=float(err.max()), cummax_max_abs_err=0.0,
+        repeat_bit_equal=True)
+    return float(err.max())
+
+
+def soak_phase(wrappers, card_name):
+    """scripts/torch_soak_30k.py's set-up at full size (cap 100k, 800x800,
+    p_gt 20k, 24 cameras) and its run for SOAK["iterations"], counts
+    zeroed before the run and read after it. Gates: every checked loss
+    finite (the run raises), n_alive at each report as densify's +5% rule
+    says, the later held-out PSNR above the earlier, no overflow after a
+    budget change, launches (one blend forward and one owner expansion a
+    render, one blend backward a step, one multi_cummax a template draw).
+    Then one step and one densification from the final state (just
+    densified), their kernel inputs held against the plain versions."""
+    import dataclasses as dc
+
+    import torch
+
+    from gsplat_tpu_torch.train import step as step_lib
+    from gsplat_tpu_torch.train.config import OptimizationConfig
+
+    soak = load_script("torch_soak_30k")
+    t0 = time.time()
+    rng = np.random.default_rng(0)
+    su = soak.setup(DEVICE, rng)
+    torch.cuda.synchronize()
+    setup_s = time.time() - t0
+    lines = []
+    for w in wrappers.values():
+        w.launches = 0
+    t1 = time.time()
+    res, state, adam = soak.run(
+        su, rng, SOAK["iterations"], SOAK["report_every"],
+        os.path.join(WORK, "soak_trained_stats.npz"), say=lines.append)
+    torch.cuda.synchronize()
+    run_s = time.time() - t1
+    launches = {k: w.launches for k, w in wrappers.items()}
+    opt = OptimizationConfig()
+    sched = soak.Schedule(opt, su["train_ids"], SOAK["iterations"],
+                          SOAK["report_every"], su["settings"].chunk)
+    steps, reports = SOAK["iterations"], len(res["eval_log"])
+    dens = [it for it in range(1, steps + 1) if sched.densify_due(it)]
+    cap, n0 = su["cfg"]["cap"], su["state"].n_alive
+    want_n = [expected_n_alive(n0, cap, sum(d <= e["it"] for d in dens))
+              for e in res["eval_log"]]
+    got_n = [e["n_alive"] for e in res["eval_log"]]
+    psnrs = [e["psnr"] for e in res["eval_log"]]
+    late = [o for o in res["overflows"]
+            if any(c["it"] < o["it"] for c in res["budget_changes"])]
+    renders = steps + reports * len(soak.TEST_IDX)
+    if (got_n != want_n or not psnrs[-1] > psnrs[0] or late
+            or res["densify_ms"]["count"] != len(dens) or len(dens) != 7):
+        raise AssertionError(f"soak: n_alive {got_n} (want {want_n}), "
+                             f"psnr {psnrs}, overflows after a budget "
+                             f"change {late}, densifications "
+                             f"{res['densify_ms']['count']}")
+    want = dict(tile_blend_forward=renders, tile_blend_backward=steps,
+                multi_cummax=2 * len(dens), render_forward=0)
+    got = {k: launches[k] for k in want}
+    segsum_steps = launches["multi_cumsum"] - 2 * len(dens)
+    if (got != want or launches["merge_expand"] + launches["expand_scan"]
+            != renders or segsum_steps < 0
+            or (not res["budget_changes"] and segsum_steps)):
+        raise AssertionError(f"soak: launches {launches}, expected {want}, "
+                             f"an owner expansion a render ({renders}) and "
+                             f"multi_cumsum 2 a densification")
+
+    # one step and one densification from the final (just densified) state
+    final_settings = dc.replace(su["settings"], k_dup=res["final_k_dup"])
+    gen = bench.generator(DEVICE, 1)
+    ci = su["train_ids"][0]
+    store, draws = {}, []
+    with capture_step(store):
+        step_lib.make_train_step(opt, final_settings, 4.0)(
+            state, adam, gen, su["cams"][ci], su["gts"][ci], su["bg"],
+            float(steps + 1), sched.sh_degree(steps + 1))
+    with record_draws(draws):
+        step_lib.make_densify_step(cap)(state, adam, gen)
+    torch.cuda.synchronize()
+    cap_in = {k: v[0] for k, v in store["ext"].items() if v}
+    name = "soak-100k-800x800"
+    errs = check_owner_expansion(name, store, card_name)
+    kern = check_training_kernels({name: cap_in}, card_name)
+    errs.update({k: v[name]["max_abs_err"] for k, v in kern.items()})
+    errs["template_scans"] = [check_template_scans(name, p, card_name)
+                              for p, _ in draws]
+    ms = [e["ms_it"] for e in res["eval_log"]]
+    log("soak", card=card_name, setting=name, iterations=steps,
+        report_every=SOAK["report_every"], seconds=time.time() - t0,
+        setup_seconds=setup_s, run_seconds=run_s, ms_per_step_by_report=ms,
+        eval_log=res["eval_log"], psnr=psnrs, n_alive=got_n,
+        densifications=len(dens),
+        densify_ms=res["densify_ms"], k_dup_start=su["settings"].k_dup,
+        budget_changes=res["budget_changes"], overflows=res["overflows"],
+        dup_peak=res["dup_peak"], launches=launches,
+        launches_per_step={k: v / steps for k, v in launches.items()},
+        peak_mem_gb=res["peak_mem_gb"], kernel_max_abs_err=errs,
+        report_lines=lines)
+    return launches
+
+
+def soak_swin_phase(wrappers, card_name):
+    """scripts/torch_soak_swin.py at full width (cap 200k, 1280x720, p_gt
+    100k, 4 cameras) on SOAK_SWIN's schedule: genesis, decay_genesis,
+    every evolve up to the last frame and mature_rest, counts zeroed
+    before; then the playback, counts zeroed before it, its first frame's
+    kernel inputs held against the plain versions. Gates: window losses
+    finite; the first evolve streams every genesis row, each later tick
+    cap / swin rows, the stream's records their sum with mature_rest's;
+    playback finite (its PSNR against the GT logged, not gated: windows of
+    60 and 30 iterations are too short for a quality floor); launches (one
+    blend backward and one multi_cumsum a training step: the 400k-row
+    union reduces by segment sums; one blend forward and one owner
+    expansion a render)."""
+    import argparse
+
+    import torch
+
+    from gsplat_tpu_torch.raster import rasterize as rast
+    from gsplat_tpu_torch.raster import tile_kernel
+
+    sw = load_script("torch_soak_swin")
+    t0 = time.time()
+    args = argparse.Namespace(**SOAK_SWIN, device=DEVICE,
+                              out=os.path.join(WORK, "soak_swin"))
+    rng = np.random.default_rng(0)
+    su = sw.setup(DEVICE, rng, args)
+    soak = sw.Soak(su, rng, args, say=lambda s: None)
+    for w in wrappers.values():
+        w.launches = 0
+    tr = sw.train(soak, args.out)
+    torch.cuda.synchronize()
+    train_launches = {k: w.launches for k, w in wrappers.items()}
+    steps = args.genesis_iters + args.window_iters * (len(tr["matured"]) - 1)
+    cap, per_tick = args.cap, args.cap // args.swin_size
+    ticks = args.frames - args.swin_size
+    losses = [w["loss"] for w in soak.window_stats]
+    if (not all(math.isfinite(x) for x in losses)
+            or tr["matured"][:-1] != [cap] + [per_tick] * (ticks - 1)):
+        raise AssertionError(f"soak_swin: window losses {losses}, matured "
+                             f"{tr['matured']}")
+    fwd = train_launches["tile_blend_forward"]
+    # the union's 2 x cap rows take the segment-sum reduction at full size
+    # (one multi_cumsum a step); K stays below its slot threshold
+    segsum = 2 * cap + 1 > rast._SCATTER_MAX_ROWS
+    if soak.box.settings.k_dup >= rast._SEGSUM_MIN_SLOTS:
+        raise AssertionError(f"soak_swin: k_dup {soak.box.settings.k_dup}")
+    want = dict(tile_blend_backward=steps,
+                multi_cumsum=steps if segsum else 0, multi_cummax=0,
+                render_forward=0)
+    if ({k: train_launches[k] for k in want} != want or fwd < steps
+            or train_launches["merge_expand"]
+            + train_launches["expand_scan"] != fwd):
+        raise AssertionError(f"soak_swin training: launches {train_launches}"
+                             f", expected {want}, one owner expansion a "
+                             f"blend forward")
+    for w in wrappers.values():
+        w.launches = 0
+    store = {}
+    frames = len(range(0, args.frames, max(args.frames // 8, 1)))
+    with capture_step(store):
+        psnrs, records = sw.playback(soak, args.out)
+    torch.cuda.synchronize()
+    pb_launches = {k: w.launches for k, w in wrappers.items()}
+    if records != sum(tr["matured"]) or not all(
+            math.isfinite(p) for _, p in psnrs):
+        raise AssertionError(f"soak_swin playback: {records} records, "
+                             f"matured {tr['matured']}, psnr {psnrs}")
+    gt_renders = pb_launches["tile_blend_forward"] - frames
+    want = dict(tile_blend_backward=0, multi_cumsum=0, multi_cummax=0,
+                render_forward=0)
+    if ({k: pb_launches[k] for k in want} != want or gt_renders < 0
+            or pb_launches["merge_expand"] + pb_launches["expand_scan"]
+            != frames + gt_renders):
+        raise AssertionError(f"soak_swin playback: launches {pb_launches}")
+    name = "soak-swin-200k-1280x720"
+    errs = check_owner_expansion(name, store, card_name)
+    with torch.no_grad():
+        feat, meta, kw = blend_kwargs(store["ext"]["blend_forward"][0])
+        errs["tile_blend_forward"] = check_blend_forward(
+            name, tile_kernel.tile_blend_forward, feat, meta, kw,
+            tile_kernel._blend_plain(feat, meta, **kw))["fwd_max_abs_err"]
+    log("soak_swin", card=card_name, setting=name, **SOAK_SWIN,
+        seconds=time.time() - t0, train_seconds=tr["wall"],
+        windows=soak.window_stats, matured_per_tick=tr["matured"],
+        stream_records=records, stream_bytes=os.path.getsize(
+            tr["dump_path"]), budget_regrows=soak.regrows,
+        playback_psnr=psnrs, playback_psnr_mean=statistics.mean(
+            p for _, p in psnrs), train_launches=train_launches,
+        playback_launches=pb_launches, kernel_max_abs_err=errs,
+        peak_mem_gib=torch.cuda.max_memory_allocated() / 2 ** 30)
+    return {k: train_launches[k] + pb_launches[k] for k in train_launches}
+
+
 # the multi-rank modes, four gloo ranks sharing the one card; "two" modes
 # run on ranks 0 and 1 while 2 and 3 wait, dp x ps on all four
 PARALLEL_STEPS = 3     # per mode: step A (noise off, compared) + 2 timed
@@ -3594,6 +3903,12 @@ def main() -> int:
     # ARAP on the trained swin state (its rigid motion is not zero)
     more_launches["arap"] = arap_phase(swin_st, swin_trained[0], wrappers,
                                        card_name)
+    # ---- the long-run soaks at full width, cut in length; counts zeroed
+    # before each
+    more_launches["soak"] = soak_phase(wrappers, card_name)
+    more_launches["soak_swin"] = soak_swin_phase(wrappers, card_name)
+    gc.collect()
+    torch.cuda.empty_cache()
 
     # ---- device time by kernel, after every unprofiled timing
     for setting, fn in render_fns.items():

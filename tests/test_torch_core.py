@@ -56,16 +56,19 @@ def _imported_modules(path):
 
 
 def test_port_imports_neither_jax_nor_gsplat_tpu():
-    """Nor the JAX side's entry scripts (bench.py, __graft_entry__.py)."""
+    """Nor the JAX side's entry scripts (bench.py, __graft_entry__.py,
+    the JAX soaks); the port's scripts under scripts/ neither."""
     files = sorted((REPO / "gsplat_tpu_torch").rglob("*.py"))
     files += [REPO / "chip_smoke.py", REPO / "bench_torch.py"]
+    files += sorted((REPO / "scripts").glob("torch_*.py"))
     assert len(files) > 10
     for path in files:
         for mod in _imported_modules(path):
             top = mod.split(".")[0]
             assert top not in ("jax", "jaxlib", "gsplat_tpu", "bench",
                                "__graft_entry__",
-                               "gen_hw_parity_golden"), (
+                               "gen_hw_parity_golden", "soak_30k",
+                               "soak_swin"), (
                 f"{path.relative_to(REPO)} imports {mod}")
 
 
