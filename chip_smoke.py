@@ -862,7 +862,8 @@ def profile_frames(fn, cams, setting, frame_ms, plain_pass_ms, card_name):
     rows = []
     for e in prof.key_averages():
         dev_us = getattr(e, "self_device_time_total", 0) or 0
-        if str(getattr(e, "device_type", "")).endswith("CUDA") and dev_us:
+        if (str(getattr(e, "device_type", "")).endswith("CUDA") and dev_us
+                and not getattr(e, "is_user_annotation", False)):
             rows.append((dev_us / 1e3 / len(cams), e.count // len(cams),
                          e.key))
     rows.sort(reverse=True)
@@ -1436,7 +1437,8 @@ def profile_steps(phase, setting, run, step_ms, card_name, n=3):
     rows = []
     for e in prof.key_averages():
         dev_us = getattr(e, "self_device_time_total", 0) or 0
-        if str(getattr(e, "device_type", "")).endswith("CUDA") and dev_us:
+        if (str(getattr(e, "device_type", "")).endswith("CUDA") and dev_us
+                and not getattr(e, "is_user_annotation", False)):
             rows.append((dev_us / 1e3 / n, e.count // n, e.key))
     rows.sort(reverse=True)
     busy = sum(r[0] for r in rows)

@@ -32,6 +32,7 @@ from gsplat_tpu_torch.core.camera import CameraParams
 from gsplat_tpu_torch.raster import binning as binning_lib
 from gsplat_tpu_torch.raster import project as project_lib
 from gsplat_tpu_torch.raster import scan_kernel, tile_kernel
+from gsplat_tpu_torch.utils.profiling import span
 
 
 @dataclasses.dataclass(frozen=True)
@@ -145,10 +146,11 @@ class _GatherRowsT(torch.autograd.Function):
         gid, seg_bounds = ctx.saved_tensors
         p1 = ctx.p1
         dfeat = dfeat.contiguous()
-        if gid.shape[0] >= _SEGSUM_MIN_SLOTS or p1 > _SCATTER_MAX_ROWS:
-            dtable = _segsum_reduce(dfeat, gid, seg_bounds, p1)
-        else:
-            dtable = _scatter_reduce(dfeat, gid, p1)
+        with span("raster.reduce"):
+            if gid.shape[0] >= _SEGSUM_MIN_SLOTS or p1 > _SCATTER_MAX_ROWS:
+                dtable = _segsum_reduce(dfeat, gid, seg_bounds, p1)
+            else:
+                dtable = _scatter_reduce(dfeat, gid, p1)
         return dtable, None, None
 
 
@@ -188,10 +190,11 @@ def rasterize(means3d, scales, quats, opacities, shs, camera: CameraParams,
     num_tiles = grid_x * grid_y
     n_pix = s.tile_x * s.tile_y
 
-    proc = project_lib.preprocess(
-        means3d, scales, quats, opacities, shs, camera, sh_degree,
-        colors_precomp=colors_precomp, cov3d_precomp=cov3d_precomp,
-        scale_modifier=scale_modifier, alive=alive)
+    with span("raster.preprocess"):
+        proc = project_lib.preprocess(
+            means3d, scales, quats, opacities, shs, camera, sh_degree,
+            colors_precomp=colors_precomp, cov3d_precomp=cov3d_precomp,
+            scale_modifier=scale_modifier, alive=alive)
     if band_h is not None:
         y0 = torch.as_tensor(band_y0, dtype=proc.xy.dtype,
                              device=proc.xy.device)
@@ -200,53 +203,63 @@ def rasterize(means3d, scales, quats, opacities, shs, camera: CameraParams,
     # binning is integer bookkeeping: no gradient, except through the
     # feature table it reorders into depth-rank space
     proc_ng = project_lib.Preprocessed(*(t.detach() for t in proc))
-    binn = binning_lib.bin_gaussians(
-        proc_ng, tile_x=s.tile_x, tile_y=s.tile_y, grid_x=grid_x,
-        grid_y=grid_y, k_dup=s.k_dup, chunk=s.chunk, align=s.super_chunks,
-        feat_table=_feat_columns(proc))
+    with span("raster.binning"):
+        binn = binning_lib.bin_gaussians(
+            proc_ng, tile_x=s.tile_x, tile_y=s.tile_y, grid_x=grid_x,
+            grid_y=grid_y, k_dup=s.k_dup, chunk=s.chunk,
+            align=s.super_chunks, feat_table=_feat_columns(proc))
     bg = torch.as_tensor(bg, dtype=torch.float32, device=means3d.device)
 
     if s.inference:
-        feat = _slot_features(binn.feat_table, binn.gid,
-                              dtype=torch.bfloat16)
-        c_img = tile_kernel.render_forward(
-            feat, binn.chunk_meta, bg, num_tiles, n_pix, s.tile_x, s.tile_y,
-            grid_x, s.chunk)
-        image = assemble_tiles(c_img, grid_x, grid_y, s.tile_x, s.tile_y,
-                               width, height)
-        final_t = torch.zeros(height, width, dtype=torch.float32,
-                              device=means3d.device)
+        with span("raster.gather"):
+            feat = _slot_features(binn.feat_table, binn.gid,
+                                  dtype=torch.bfloat16)
+        with span("raster.render"):
+            c_img = tile_kernel.render_forward(
+                feat, binn.chunk_meta, bg, num_tiles, n_pix, s.tile_x,
+                s.tile_y, grid_x, s.chunk)
+        with span("raster.assemble"):
+            image = assemble_tiles(c_img, grid_x, grid_y, s.tile_x,
+                                   s.tile_y, width, height)
+            final_t = torch.zeros(height, width, dtype=torch.float32,
+                                  device=means3d.device)
         return RasterizeOutput(image=image, radii=binn.radius,
                                is_used=binn.used, num_dup=binn.num_dup,
                                final_t=final_t, used_tile=binn.used)
 
-    feat = _slot_features(binn.feat_table, binn.gid,
-                          seg_bounds=binn.seg_bounds)
-    c_img, t_img, used_slot = tile_kernel.tile_blend(
-        feat, binn.chunk_meta, num_tiles, n_pix, s.tile_x, s.tile_y, grid_x,
-        s.chunk)
+    with span("raster.gather"):
+        feat = _slot_features(binn.feat_table, binn.gid,
+                              seg_bounds=binn.seg_bounds)
+    with span("raster.render"):
+        c_img, t_img, used_slot = tile_kernel.tile_blend(
+            feat, binn.chunk_meta, num_tiles, n_pix, s.tile_x, s.tile_y,
+            grid_x, s.chunk)
 
-    # pixel-granular is_used (forward.cu:364): any slot of the Gaussian
-    # composited a pixel. Slots that did not (padding among them) write to
-    # one spare cell with plain stores, which all carry the same value.
-    p = binn.order.shape[0]
-    hit = used_slot > 0
-    used_rank = torch.zeros(p + 2, dtype=torch.bool, device=means3d.device)
-    used_rank.index_put_((torch.where(hit, binn.gid.long(),
-                                      torch.full_like(binn.gid, p + 1,
-                                                      dtype=torch.long)),),
-                         hit)
-    is_used = used_rank[binn.inv_order.long()]
+    with span("raster.assemble"):
+        # pixel-granular is_used (forward.cu:364): any slot of the
+        # Gaussian composited a pixel. Slots that did not (padding among
+        # them) write to one spare cell with plain stores, which all carry
+        # the same value.
+        p = binn.order.shape[0]
+        hit = used_slot > 0
+        used_rank = torch.zeros(p + 2, dtype=torch.bool,
+                                device=means3d.device)
+        used_rank.index_put_(
+            (torch.where(hit, binn.gid.long(),
+                         torch.full_like(binn.gid, p + 1,
+                                         dtype=torch.long)),), hit)
+        is_used = used_rank[binn.inv_order.long()]
 
-    color = assemble_tiles(c_img, grid_x, grid_y, s.tile_x, s.tile_y, width,
-                           height)
-    final_t = assemble_tiles(t_img, grid_x, grid_y, s.tile_x, s.tile_y,
-                             width, height)[0]
-    image = color + final_t[None] * bg[:, None, None]
-    if s.layout == "hwc":
-        image = image.permute(1, 2, 0)
-    elif s.layout != "chw":
-        raise ValueError(f"layout must be 'hwc' or 'chw', got {s.layout!r}")
+        color = assemble_tiles(c_img, grid_x, grid_y, s.tile_x, s.tile_y,
+                               width, height)
+        final_t = assemble_tiles(t_img, grid_x, grid_y, s.tile_x, s.tile_y,
+                                 width, height)[0]
+        image = color + final_t[None] * bg[:, None, None]
+        if s.layout == "hwc":
+            image = image.permute(1, 2, 0)
+        elif s.layout != "chw":
+            raise ValueError(
+                f"layout must be 'hwc' or 'chw', got {s.layout!r}")
     return RasterizeOutput(image=image, radii=binn.radius, is_used=is_used,
                            num_dup=binn.num_dup, final_t=final_t,
                            used_tile=binn.used)

@@ -24,6 +24,7 @@ from gsplat_tpu_torch.model.gaussians import GaussianState
 from gsplat_tpu_torch.raster.rasterize import RasterizeSettings, rasterize
 from gsplat_tpu_torch.train import losses
 from gsplat_tpu_torch.train.config import OptimizationConfig
+from gsplat_tpu_torch.utils.profiling import span
 
 
 class StepMetrics(NamedTuple):
@@ -66,19 +67,22 @@ def _loss_and_grads(opt: OptimizationConfig, settings: RasterizeSettings,
               for k, v in state.params().items()}
     s = state.replace_params(params)
     alive = s.alive_mask
-    out = rasterize(s.xyz, s.get_scaling(), s.get_rotation(),
-                    s.get_opacity()[:, 0], s.get_features(), camera,
-                    sh_degree, bg, settings, alive=alive)
-    img = out.image
-    ll1 = losses.l1_loss(img, gt_image)
-    lssim = losses.ssim(img, gt_image)
-    loss = (1.0 - opt.lambda_dssim) * ll1 + opt.lambda_dssim * (1.0 - lssim)
-    # regularisers over the alive rows (train_static.py:99-100)
-    loss = loss + opt.opacity_reg * masked_mean(
-        torch.abs(s.get_opacity()), alive, s.n_alive)
-    loss = loss + opt.scale_reg * masked_mean(
-        torch.abs(s.get_scaling()), alive, s.n_alive)
-    grads = torch.autograd.grad(loss, list(params.values()))
+    with span("train.loss"):
+        out = rasterize(s.xyz, s.get_scaling(), s.get_rotation(),
+                        s.get_opacity()[:, 0], s.get_features(), camera,
+                        sh_degree, bg, settings, alive=alive)
+        img = out.image
+        ll1 = losses.l1_loss(img, gt_image)
+        lssim = losses.ssim(img, gt_image)
+        loss = ((1.0 - opt.lambda_dssim) * ll1
+                + opt.lambda_dssim * (1.0 - lssim))
+        # regularisers over the alive rows (train_static.py:99-100)
+        loss = loss + opt.opacity_reg * masked_mean(
+            torch.abs(s.get_opacity()), alive, s.n_alive)
+        loss = loss + opt.scale_reg * masked_mean(
+            torch.abs(s.get_scaling()), alive, s.n_alive)
+    with span("train.backward"):
+        grads = torch.autograd.grad(loss, list(params.values()))
     with torch.no_grad():
         metrics = StepMetrics(
             loss=loss.detach(), l1=ll1.detach(), num_dup=out.num_dup,
@@ -99,13 +103,15 @@ def make_train_step(opt: OptimizationConfig, settings: RasterizeSettings,
         grads, metrics = _loss_and_grads(opt, settings, state, camera,
                                          gt_image, bg, sh_degree)
         xyz_lr, lrs = learning_rates(opt, spatial_lr_scale, iteration)
-        new_params, new_adam = optim.step(state.params(), grads, adam_state,
-                                          lrs)
+        with span("train.adam"):
+            new_params, new_adam = optim.step(state.params(), grads,
+                                              adam_state, lrs)
         # noise after the optimizer step (train_static.py:132-140), skipped
         # at the final iteration like the reference's guard (:131)
         noise_lr = opt.noise_lr * float(iteration < opt.iterations)
-        new_state = mcmc.inject_noise(state.replace_params(new_params), gen,
-                                      noise_lr, xyz_lr)
+        with span("train.noise"):
+            new_state = mcmc.inject_noise(state.replace_params(new_params),
+                                          gen, noise_lr, xyz_lr)
         return new_state, new_adam, metrics
 
     return train_step
@@ -142,13 +148,15 @@ def make_apply_step(opt: OptimizationConfig, spatial_lr_scale: float,
                    do_adam: bool, *extra):
         xyz_lr, lrs = learning_rates(opt, spatial_lr_scale, iteration)
         if do_adam:
-            new_params, adam_state = optim.step(state.params(), grads,
-                                                adam_state, lrs)
+            with span("train.adam"):
+                new_params, adam_state = optim.step(state.params(), grads,
+                                                    adam_state, lrs)
             state = state.replace_params(new_params)
         noise_lr = opt.noise_lr * float(iteration < opt.iterations)
         raw = extra[0] if external_noise else None
-        state = mcmc.inject_noise(state, gen, noise_lr, xyz_lr,
-                                  raw_noise=raw)
+        with span("train.noise"):
+            state = mcmc.inject_noise(state, gen, noise_lr, xyz_lr,
+                                      raw_noise=raw)
         return state, adam_state
 
     return apply_step
@@ -160,8 +168,9 @@ def make_densify_step(cap_max: int):
 
     def densify_step(state: GaussianState, adam_state: optim.AdamState,
                      gen: torch.Generator):
-        state, adam_state = mcmc.relocate_gs(state, adam_state, gen)
-        return mcmc.add_new_gs(state, adam_state, gen, cap_max)
+        with span("train.densify"):
+            state, adam_state = mcmc.relocate_gs(state, adam_state, gen)
+            return mcmc.add_new_gs(state, adam_state, gen, cap_max)
 
     return densify_step
 
@@ -175,10 +184,11 @@ def make_densify_replay_step():
     def densify_replay_step(state: GaussianState,
                             adam_state: optim.AdamState, dead_mask,
                             reloc_templates, add_templates, target: int):
-        state, adam_state = mcmc.relocate_gs_forced(
-            state, adam_state, dead_mask, reloc_templates)
-        return mcmc.add_new_gs_forced(state, adam_state, add_templates,
-                                      target)
+        with span("train.densify"):
+            state, adam_state = mcmc.relocate_gs_forced(
+                state, adam_state, dead_mask, reloc_templates)
+            return mcmc.add_new_gs_forced(state, adam_state, add_templates,
+                                          target)
 
     return densify_replay_step
 

@@ -28,6 +28,7 @@ from gsplat_tpu_torch.raster.rasterize import RasterizeSettings, rasterize
 from gsplat_tpu_torch.train import losses
 from gsplat_tpu_torch.train.config import OptimizationConfig
 from gsplat_tpu_torch.train.step import learning_rates, masked_mean
+from gsplat_tpu_torch.utils.profiling import span
 
 
 class SwinMetrics(NamedTuple):
@@ -81,16 +82,19 @@ def _loss_and_grads(opt, settings, state: SwinState, camera, gt_image, bg,
     fields over the immature k-NN graph (positions not differentiated)."""
     params = {k: v.detach().requires_grad_(True)
               for k, v in state.params().items()}
-    loss, (ll1, num_dup, img, n_active) = swin_loss(
-        opt, settings, state, params, camera, gt_image, bg, frame, sh_degree)
-    if arap is not None:
-        weights, nbr = arap
-        pens = losses.arap_loss(params["xyz"].detach(),
-                                [params[k] for k in RIGID_KEYS], nbr)
-        loss = loss + torch.sum(pens * torch.tensor(
-            weights, dtype=torch.float32, device=pens.device))
-    grads = torch.autograd.grad(loss, list(params.values()),
-                                allow_unused=True)
+    with span("train.loss"):
+        loss, (ll1, num_dup, img, n_active) = swin_loss(
+            opt, settings, state, params, camera, gt_image, bg, frame,
+            sh_degree)
+        if arap is not None:
+            weights, nbr = arap
+            pens = losses.arap_loss(params["xyz"].detach(),
+                                    [params[k] for k in RIGID_KEYS], nbr)
+            loss = loss + torch.sum(pens * torch.tensor(
+                weights, dtype=torch.float32, device=pens.device))
+    with span("train.backward"):
+        grads = torch.autograd.grad(loss, list(params.values()),
+                                    allow_unused=True)
     grads = {k: torch.zeros_like(p) if g is None else g
              for (k, p), g in zip(params.items(), grads)}
     with torch.no_grad():
@@ -125,10 +129,12 @@ def make_swin_train_step(opt: OptimizationConfig,
                                          gt_image, bg, frame, sh_degree,
                                          arap=arap)
         xyz_lr, lrs = swin_learning_rates(opt, spatial_lr_scale, iteration)
-        new_params, adam = optim.step(state.params(), grads, adam, lrs)
-        state = swin.inject_noise_active(state.replace_params(new_params),
-                                         gen, opt.noise_lr, xyz_lr, frame,
-                                         raw_noise=raw_noise)
+        with span("train.adam"):
+            new_params, adam = optim.step(state.params(), grads, adam, lrs)
+        with span("train.noise"):
+            state = swin.inject_noise_active(
+                state.replace_params(new_params), gen, opt.noise_lr, xyz_lr,
+                frame, raw_noise=raw_noise)
         return state, adam, metrics
 
     return swin_train_step
@@ -168,10 +174,14 @@ def make_swin_apply_step(opt: OptimizationConfig, spatial_lr_scale: float):
                         frame: float, do_adam: bool, raw_noise=None):
         xyz_lr, lrs = swin_learning_rates(opt, spatial_lr_scale, iteration)
         if do_adam:
-            new_params, adam = optim.step(state.params(), grads, adam, lrs)
+            with span("train.adam"):
+                new_params, adam = optim.step(state.params(), grads, adam,
+                                              lrs)
             state = state.replace_params(new_params)
-        state = swin.inject_noise_active(state, gen, opt.noise_lr, xyz_lr,
-                                         frame, raw_noise=raw_noise)
+        with span("train.noise"):
+            state = swin.inject_noise_active(state, gen, opt.noise_lr,
+                                             xyz_lr, frame,
+                                             raw_noise=raw_noise)
         return state, adam
 
     return swin_apply_step
@@ -185,10 +195,12 @@ def make_swin_densify_step(cap_max: int, window_size: int):
     def densify(state: SwinState, adam: optim.AdamState,
                 gen: torch.Generator | None, window_start: float,
                 genesis: bool):
-        state, adam = swin.relocate_immature(state, adam, gen, window_start,
-                                             window_size=window_size)
-        if genesis:
-            state, adam = swin.add_new_gs(state, adam, gen, cap_max)
+        with span("train.densify"):
+            state, adam = swin.relocate_immature(state, adam, gen,
+                                                 window_start,
+                                                 window_size=window_size)
+            if genesis:
+                state, adam = swin.add_new_gs(state, adam, gen, cap_max)
         return state, adam
 
     return densify

@@ -314,86 +314,93 @@ def _train_loop(model_cfg, opt, pipe, args, mesh, device, rank0, tb_writer,
         if tracer is not None and iteration == profile_range[-1]:
             print(f"profile trace -> {tracer.stop()}")
             tracer = None
-        sh_degree = min(iteration // 1000, model_cfg.sh_degree)
-        step_bg = (torch.rand(3, generator=gen, device=device)
-                   if opt.random_background else bg)
-        densify_now = (opt.densify_from_iter < iteration
-                       < opt.densify_until_iter
-                       and iteration % opt.densification_interval == 0)
-        if not single:
-            # every rank draws the whole batch in the same order and takes
-            # the camera at its own dp index
-            if n_dp > 1:
-                cam_obj = own_sample([draw() for _ in range(n_dp)], mesh)
-            else:
-                cam_obj = draw()
-            camera, gt = cam_obj.load()
-            gt_dev = _chw(gt, device)
-            if n_ps > 1:
-                ps_params, ps_adam, metrics = train_step(sh_degree)(
-                    ps_params, mesh_lib.shard_rows(state.alive_mask, mesh,
-                                                   "ps"),
-                    ps_adam, noise_gen, camera, gt_dev, step_bg,
-                    float(iteration), state.n_alive)
-            else:
-                state, adam, metrics = train_step(
-                    state, adam, gen, camera, gt_dev, step_bg,
-                    float(iteration), sh_degree)
-            if densify_now:
-                if n_ps > 1:
-                    # densification runs on the gathered state, the same
-                    # draws on every rank; the rows reshard after it
-                    state, adam = sync_state()
-                    state, adam = densify_step(state, adam, gen)
-                    ps_params = {k: mesh_lib.shard_rows(v, mesh, "ps")
-                                 for k, v in state.params().items()}
-                    ps_adam = _shard_adam(adam, mesh)
+        with profiling.span("train.step"):
+            sh_degree = min(iteration // 1000, model_cfg.sh_degree)
+            step_bg = (torch.rand(3, generator=gen, device=device)
+                       if opt.random_background else bg)
+            densify_now = (opt.densify_from_iter < iteration
+                           < opt.densify_until_iter
+                           and iteration % opt.densification_interval == 0)
+            if not single:
+                # every rank draws the whole batch in the same order and
+                # takes the camera at its own dp index
+                if n_dp > 1:
+                    cam_obj = own_sample([draw() for _ in range(n_dp)],
+                                         mesh)
                 else:
-                    state, adam = densify_step(state, adam, gen)
-        else:
-            if replay is not None:
-                cam_obj = cams_by_name[replay.camera_name(iteration)]
-            else:
-                cam_obj = draw()
-            camera, gt = cam_obj.load()
-            gt_dev = _chw(gt, device)
-            if replay is not None or densify_now:
-                # reference interleave: backward -> densify -> Adam -> noise
-                grads, metrics = grad_step(state, camera, gt_dev, step_bg,
-                                           sh_degree)
-                surgery = False
+                    cam_obj = draw()
+                camera, gt = cam_obj.load()
+                gt_dev = _chw(gt, device)
+                if n_ps > 1:
+                    ps_params, ps_adam, metrics = train_step(sh_degree)(
+                        ps_params,
+                        mesh_lib.shard_rows(state.alive_mask, mesh, "ps"),
+                        ps_adam, noise_gen, camera, gt_dev, step_bg,
+                        float(iteration), state.n_alive)
+                else:
+                    state, adam, metrics = train_step(
+                        state, adam, gen, camera, gt_dev, step_bg,
+                        float(iteration), sh_degree)
                 if densify_now:
-                    if replay is not None and replay.has_densify(iteration):
-                        dm, rt, at_, target = replay.densify_arrays(
-                            iteration, state=state)
-                        surgery = bool(dm.any()) or target > state.n_alive
-                        state, adam = densify_replay_step(
-                            state, adam, torch.as_tensor(dm, device=device),
-                            torch.as_tensor(rt, device=device),
-                            torch.as_tensor(at_, device=device), target)
-                    else:
-                        # did relocation or growth touch the model? (the
-                        # reference's grad=None Adam skip, make_apply_step)
-                        n = state.n_alive
-                        dead_any = bool((state.alive_mask & (
-                            state.get_opacity()[:, 0] <= 0.005)).any())
-                        surgery = dead_any or min(capacity,
-                                                  int(1.05 * n)) > n
+                    if n_ps > 1:
+                        # densification runs on the gathered state, the
+                        # same draws on every rank; the rows reshard after it
+                        state, adam = sync_state()
                         state, adam = densify_step(state, adam, gen)
-                extra = ((torch.as_tensor(replay.noise(iteration),
-                                          device=device),)
-                         if replay is not None else ())
-                state, adam = apply_step(state, adam, grads, gen,
-                                         float(iteration), not surgery,
-                                         *extra)
+                        ps_params = {k: mesh_lib.shard_rows(v, mesh, "ps")
+                                     for k, v in state.params().items()}
+                        ps_adam = _shard_adam(adam, mesh)
+                    else:
+                        state, adam = densify_step(state, adam, gen)
             else:
-                state, adam, metrics = train_step(state, adam, gen, camera,
-                                                  gt_dev, step_bg,
-                                                  float(iteration),
-                                                  sh_degree)
-            if replay is not None:
-                replay_losses.append((iteration, float(metrics.l1),
-                                      float(metrics.loss)))
+                if replay is not None:
+                    cam_obj = cams_by_name[replay.camera_name(iteration)]
+                else:
+                    cam_obj = draw()
+                camera, gt = cam_obj.load()
+                gt_dev = _chw(gt, device)
+                if replay is not None or densify_now:
+                    # reference interleave: backward -> densify -> Adam ->
+                    # noise
+                    grads, metrics = grad_step(state, camera, gt_dev,
+                                               step_bg, sh_degree)
+                    surgery = False
+                    if densify_now:
+                        if (replay is not None
+                                and replay.has_densify(iteration)):
+                            dm, rt, at_, target = replay.densify_arrays(
+                                iteration, state=state)
+                            surgery = (bool(dm.any())
+                                       or target > state.n_alive)
+                            state, adam = densify_replay_step(
+                                state, adam,
+                                torch.as_tensor(dm, device=device),
+                                torch.as_tensor(rt, device=device),
+                                torch.as_tensor(at_, device=device), target)
+                        else:
+                            # did relocation or growth touch the model?
+                            # (the reference's grad=None Adam skip,
+                            # make_apply_step)
+                            n = state.n_alive
+                            dead_any = bool((state.alive_mask & (
+                                state.get_opacity()[:, 0] <= 0.005)).any())
+                            surgery = dead_any or min(capacity,
+                                                      int(1.05 * n)) > n
+                            state, adam = densify_step(state, adam, gen)
+                    extra = ((torch.as_tensor(replay.noise(iteration),
+                                              device=device),)
+                             if replay is not None else ())
+                    state, adam = apply_step(state, adam, grads, gen,
+                                             float(iteration), not surgery,
+                                             *extra)
+                else:
+                    state, adam, metrics = train_step(state, adam, gen, camera,
+                                                      gt_dev, step_bg,
+                                                      float(iteration),
+                                                      sh_degree)
+                if replay is not None:
+                    replay_losses.append((iteration, float(metrics.l1),
+                                          float(metrics.loss)))
 
         if iteration % 10 == 0:
             # the metrics are reduced over the ranks, so every rank sees

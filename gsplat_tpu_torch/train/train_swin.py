@@ -51,6 +51,7 @@ from gsplat_tpu_torch.train.config import (ModelConfig, OptimizationConfig,
 from gsplat_tpu_torch.train.train_static import _chw, make_settings
 from gsplat_tpu_torch.utils import checkpoint as ckpt_lib
 from gsplat_tpu_torch.utils import debug as debug_lib
+from gsplat_tpu_torch.utils.profiling import span
 from gsplat_tpu_torch.utils.stream import SliWinManager, stream_dump
 
 
@@ -59,27 +60,30 @@ def evolve(state: swin.SwinState, adam, swin_mgr: SliWinManager,
     """Stream the rows that cannot fill the next window to disk (unless
     ``dump_path`` is None: ranks other than 0), then copy them into the
     ring and roll them over (gaussian_model.py:530-548)."""
-    mask = swin.mature_mask(state, float(swin_mgr.frame_end))
-    if dump_path is not None:
-        rows = swin.extract_rows_host(state, mask)
-        n = rows["start_frame"].shape[0]
-        if n:
-            stream_dump(rows, dump_path, sh_degree)
-            print(f"Matured {n} gaussians -> {dump_path}")
-    return swin.mature_and_rollover(state, adam, mask)
+    with span("swin.slide"):
+        mask = swin.mature_mask(state, float(swin_mgr.frame_end))
+        if dump_path is not None:
+            rows = swin.extract_rows_host(state, mask)
+            n = rows["start_frame"].shape[0]
+            if n:
+                stream_dump(rows, dump_path, sh_degree)
+                print(f"Matured {n} gaussians -> {dump_path}")
+        return swin.mature_and_rollover(state, adam, mask)
 
 
 def mature_rest(state: swin.SwinState, adam, dump_path: str | None,
                 sh_degree: int):
     """Mature every remaining immature Gaussian (gaussian_model.py:
     551-555)."""
-    mask = state.im.alive_mask & (state.frame_start >= 0)
-    if dump_path is not None:
-        rows = swin.extract_rows_host(state, mask)
-        if rows["start_frame"].shape[0]:
-            stream_dump(rows, dump_path, sh_degree)
-            print(f"Matured rest: {rows['start_frame'].shape[0]} gaussians")
-    return swin.mature_and_rollover(state, adam, mask)
+    with span("swin.slide"):
+        mask = state.im.alive_mask & (state.frame_start >= 0)
+        if dump_path is not None:
+            rows = swin.extract_rows_host(state, mask)
+            n = rows["start_frame"].shape[0]
+            if n:
+                stream_dump(rows, dump_path, sh_degree)
+                print(f"Matured rest: {n} gaussians")
+        return swin.mature_and_rollover(state, adam, mask)
 
 
 class StepBox:
@@ -154,50 +158,53 @@ def train_slide_window(state, adam, scene: DynamicScene,
         if it == getattr(args, "debug_from", -1):
             torch.autograd.set_detect_anomaly(True)
             print(f"debug: anomaly detection armed at iteration {it}")
-        sh_degree = (min(it // 1000, model_cfg.sh_degree) if genesis
-                     else model_cfg.sh_degree)
-        if enable_arap and (nbr_indices is None
-                            or it % opt.densification_interval == 0):
-            nbr_indices = knn_indices(state.im.xyz, k=20)[1]
-        densify_now = densify_due(opt, it, genesis)
-        if mesh is not None:
-            # every rank draws the whole batch in the same order and takes
-            # its own sample; the noise gates on the first sample's frame
-            batch = [draw() for _ in range(n_dp)]
-            cam_obj = own_sample(batch, mesh)
-            camera, gt = cam_obj.load()
-            state, adam, m = box.train(
-                state, adam, gen, camera, _chw(gt, device),
-                float(cam_obj.frame), float(batch[0].frame), bg, float(it),
-                sh_degree)
-            if densify_now:
-                state, adam = box.densify(state, adam, gen,
-                                          float(swin_mgr.frame_start),
-                                          genesis)
-        else:
-            cam_obj = draw()
-            camera, gt = cam_obj.load()
-            gt_dev = _chw(gt, device)
-            frame = float(cam_obj.frame)
-            if densify_now and not enable_arap:
-                # backward -> densify -> optimizer.step, with the Adam
-                # update always skipped (see swin_step.make_swin_grad_step)
-                _, m = box.grad(state, camera, gt_dev, bg, frame, sh_degree)
-                state, adam = box.densify(state, adam, gen,
-                                          float(swin_mgr.frame_start),
-                                          genesis)
-                state, adam = box.apply(state, adam, None, gen, float(it),
-                                        frame, False)
-            else:
-                state, adam, m = box.train(state, adam, gen, camera, gt_dev,
-                                           bg, float(it), frame, sh_degree,
-                                           nbr_indices=nbr_indices)
+        with span("train.step"):
+            sh_degree = (min(it // 1000, model_cfg.sh_degree) if genesis
+                         else model_cfg.sh_degree)
+            if enable_arap and (nbr_indices is None
+                                or it % opt.densification_interval == 0):
+                nbr_indices = knn_indices(state.im.xyz, k=20)[1]
+            densify_now = densify_due(opt, it, genesis)
+            if mesh is not None:
+                # every rank draws the whole batch in the same order and takes
+                # its own sample; the noise gates on the first sample's frame
+                batch = [draw() for _ in range(n_dp)]
+                cam_obj = own_sample(batch, mesh)
+                camera, gt = cam_obj.load()
+                state, adam, m = box.train(
+                    state, adam, gen, camera, _chw(gt, device),
+                    float(cam_obj.frame), float(batch[0].frame), bg, float(it),
+                    sh_degree)
                 if densify_now:
-                    # ARAP keeps the fused step (the split step has no
-                    # ARAP term; the reference ships ARAP gated off)
                     state, adam = box.densify(state, adam, gen,
                                               float(swin_mgr.frame_start),
                                               genesis)
+            else:
+                cam_obj = draw()
+                camera, gt = cam_obj.load()
+                gt_dev = _chw(gt, device)
+                frame = float(cam_obj.frame)
+                if densify_now and not enable_arap:
+                    # backward -> densify -> optimizer.step, with the Adam
+                    # update always skipped (see swin_step.make_swin_grad_step)
+                    _, m = box.grad(state, camera, gt_dev, bg, frame,
+                                    sh_degree)
+                    state, adam = box.densify(state, adam, gen,
+                                              float(swin_mgr.frame_start),
+                                              genesis)
+                    state, adam = box.apply(state, adam, None, gen, float(it),
+                                            frame, False)
+                else:
+                    state, adam, m = box.train(state, adam, gen, camera,
+                                               gt_dev, bg, float(it), frame,
+                                               sh_degree,
+                                               nbr_indices=nbr_indices)
+                    if densify_now:
+                        # ARAP keeps the fused step (the split step has no
+                        # ARAP term; the reference ships ARAP gated off)
+                        state, adam = box.densify(state, adam, gen,
+                                                  float(swin_mgr.frame_start),
+                                                  genesis)
 
         if it % 10 == 0:
             # the metrics are reduced over the ranks (num_dup by MAX), so

@@ -19,6 +19,7 @@ import numpy as np
 import torch
 
 from gsplat_tpu_torch.core.camera import CameraParams, camera_from_matrices
+from gsplat_tpu_torch.utils import profiling
 
 
 class NetworkGUI:
@@ -112,8 +113,23 @@ def request_to_camera(msg: dict, device: str | torch.device = "cuda"
 
 def image_to_bytes(img01) -> bytes:
     """[H, W, 3] float in [0, 1] (numpy or tensor) -> the byte layout the
-    SIBR viewer expects (uint8 RGB, C-order)."""
-    if isinstance(img01, torch.Tensor):
-        img01 = img01.detach().cpu().numpy()
-    arr = np.asarray(img01)
-    return (np.clip(arr, 0, 1) * 255 + 0.5).astype(np.uint8).tobytes()
+    SIBR viewer expects (uint8 RGB, C-order).
+
+    While tracing is on (``utils/profiling``), a CUDA tensor is waited for
+    before its copy, so that the copy's span times the copy alone: the
+    copy would wait for the same work."""
+    with profiling.span("serve.bytes"):
+        if isinstance(img01, torch.Tensor):
+            img01 = img01.detach()
+            if profiling.enabled():
+                if img01.is_cuda:
+                    with profiling.span("serve.wait"):
+                        torch.cuda.current_stream(img01.device).synchronize()
+                profiling.count("serve.d2h_bytes",
+                                img01.numel() * img01.element_size())
+            with profiling.span("serve.copy"):
+                img01 = img01.cpu().numpy()
+        with profiling.span("serve.encode"):
+            arr = np.asarray(img01)
+            return (np.clip(arr, 0, 1) * 255 + 0.5).astype(
+                np.uint8).tobytes()

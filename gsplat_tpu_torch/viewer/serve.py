@@ -26,6 +26,7 @@ from gsplat_tpu_torch.core.camera import CameraParams
 from gsplat_tpu_torch.model import gaussians
 from gsplat_tpu_torch.model.gaussians import GaussianState
 from gsplat_tpu_torch.raster.rasterize import RasterizeSettings, rasterize
+from gsplat_tpu_torch.utils.profiling import span
 from gsplat_tpu_torch.viewer import network_gui
 
 TILE_X, TILE_Y = 128, 32
@@ -57,11 +58,13 @@ def make_render_fn(state: GaussianState, k_dup: int, width: int,
         if (camera.width, camera.height) != (width, height):
             raise ValueError(f"camera is {camera.width}x{camera.height}, "
                              f"this render is {width}x{height}")
-        out = rasterize(means, scales, quats, opac, shs, camera,
-                        state.max_sh_degree, bg, settings,
-                        scale_modifier=scaling_modifier, alive=alive)
-        img = out.image.float().permute(1, 2, 0)
-        return torch.clamp(img, 0.0, 1.0)
+        with span("serve.render"):
+            out = rasterize(means, scales, quats, opac, shs, camera,
+                            state.max_sh_degree, bg, settings,
+                            scale_modifier=scaling_modifier, alive=alive)
+            with span("raster.assemble"):
+                img = out.image.float().permute(1, 2, 0)
+                return torch.clamp(img, 0.0, 1.0)
 
     return render
 
@@ -76,15 +79,19 @@ def serve(gui: network_gui.NetworkGUI, state: GaussianState, k_dup: int,
             time.sleep(0.05)
             continue
         try:
-            camera, flags = gui.receive(device)
-            if camera is None:
-                gui.send(None, verify)
-                continue
-            key = (camera.width, camera.height)
-            if key not in render_fns:
-                render_fns[key] = make_render_fn(state, k_dup, *key, device)
-            img = render_fns[key](camera, flags["scaling_modifier"])
-            gui.send(network_gui.image_to_bytes(img), verify)
+            with span("serve.request"):
+                camera, flags = gui.receive(device)
+                if camera is None:
+                    gui.send(None, verify)
+                    continue
+                key = (camera.width, camera.height)
+                if key not in render_fns:
+                    render_fns[key] = make_render_fn(state, k_dup, *key,
+                                                     device)
+                img = render_fns[key](camera, flags["scaling_modifier"])
+                data = network_gui.image_to_bytes(img)
+                with span("serve.send"):
+                    gui.send(data, verify)
             if not flags["keep_alive"]:
                 gui.disconnect()
         except (ConnectionError, OSError):

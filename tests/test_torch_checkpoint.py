@@ -15,7 +15,8 @@ gsplat_tpu_torch against the JAX package on the CPU.
   parameters bit for bit; the port resumed from JAX's checkpoint at 5
   follows JAX's run after that checkpoint within 4.1e-4. Neither package
   saves its random streams, so only a replayed run resumes exactly;
-- ``--profile_iterations`` writes a trace; ``StepTimer`` reports;
+- ``--profile_iterations`` writes a trace that holds the training step's
+  spans by name;
 - ``--frame`` on the committed dynamic fixture: the same train and test
   cameras as JAX's trainer and the first iterations' losses within
   4.1e-4.
@@ -290,14 +291,15 @@ def test_profile_iterations_write_a_trace(tmp_path, monkeypatch):
         events = json.load(f)["traceEvents"]
     names = {e.get("name", "") for e in events}
     assert any("index_add" in n or "sort" in n for n in names)
-    timer = profiling.StepTimer()
-    x = torch.ones(3)
-    dts = [timer.tick(x * i) for i in range(3)]
-    assert all(d >= 0 for d in dts) and timer.ema_ms is not None
+    assert {"train.step", "train.loss", "train.backward", "raster.binning",
+            "raster.reduce", "train.adam", "train.noise"} <= names
+    assert profiling.spans() == []          # the trace's stop empties them
     with profiling.trace(str(tmp_path / "p")) as t:
-        with profiling.annotate("tagged"):
+        with profiling.span("tagged"):
             torch.ones(8).sum()
     assert os.path.exists(t.path)
+    with open(t.path) as f:
+        assert "tagged" in {e.get("name") for e in json.load(f)["traceEvents"]}
 
 
 # ---------------------------------------------------------------- frame ----
