@@ -52,7 +52,12 @@ the result line is printed:
   small        a 300-Gaussian scene rendered on the card vs the port on
                the CPU
   serve        per setting, launch counts zeroed, its 8 cameras rendered
-               through viewer.serve.make_render_fn, counts read
+               through viewer.serve.make_render_fn, counts read (one
+               encode_rgb8 a frame); the 16 served uint8 frames' bytes
+               against the host's numpy encode of the same bf16 images
+               (0 differing bytes); encode_rgb8 timed alone (CUDA events),
+               a frame's bytes both ways and the copies into pageable and
+               page-locked memory
   socket       python -m gsplat_tpu_torch.viewer.serve per setting, 3 SIBR
                requests; reply bytes must equal the in-process image
   fps          frames/s over 3 windows of 48 frames per setting
@@ -754,6 +759,69 @@ def check_small(card_name):
         max_abs_err=float((got - want).abs().max()), mean=float(got.mean()))
 
 
+def check_encode(raw, images, card_name):
+    """The served frames' bytes (``encode_rgb8`` on the card) against the
+    host's numpy encode of the same bf16 images (the server's bytes before
+    the encode moved to the card): any differing byte fails. Times the
+    kernel alone (CUDA events, through its wrapper and through the bare
+    extension call, an output made once), its plain version, and a frame's
+    bytes reaching the host both ways; the copies into pageable and
+    page-locked memory. Returns the kernels-line entry."""
+    import torch
+
+    from gsplat_tpu_torch.raster import cuda_ext, tile_kernel
+    from gsplat_tpu_torch.viewer import network_gui
+
+    def host_encode(img):
+        return network_gui.image_to_bytes(
+            torch.clamp(img.float().permute(1, 2, 0), 0.0, 1.0))
+
+    differ = frames = 0
+    for setting, imgs in raw.items():
+        for img, served in zip(imgs, images[setting]):
+            got = np.frombuffer(network_gui.image_to_bytes(served), np.uint8)
+            want = np.frombuffer(host_encode(img), np.uint8)
+            differ += int((got != want).sum())
+            frames += 1
+    if differ or frames != sum(len(v) for v in images.values()):
+        raise AssertionError(f"encode_rgb8: {differ} bytes differ from the "
+                             f"host encode over {frames} frames")
+    x = raw["expand"][0].contiguous()
+    out = torch.empty(HEIGHT, WIDTH, 3, dtype=torch.uint8, device=DEVICE)
+    ext = cuda_ext.load()
+    entry = dict(
+        name="encode_rgb8", route="cuda",
+        source="gsplat_tpu_torch/csrc/encode_kernel.cu",
+        replaces="none: gsplat_tpu/viewer/network_gui.py image_to_bytes "
+                 "(numpy, host)",
+        max_abs_err=0, differing_bytes=differ, frames=frames,
+        ms=cuda_ms(lambda: tile_kernel.encode_rgb8(x), 200),
+        ext_ms=cuda_ms(lambda: ext.encode_rgb8(x, out), 200),
+        plain_ms=cuda_ms(lambda: tile_kernel.encode_rgb8_plain(x), 20),
+        bound_ms=9 * WIDTH * HEIGHT / MEM_BPS * 1e3, bound_by="bytes",
+        library_ms=None, shape=f"[3, {HEIGHT}, {WIDTH}] bf16")
+
+    def wall_ms(fn, reps=10):
+        fn()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            fn()
+        return (time.perf_counter() - t0) * 1e3 / reps
+
+    u8 = tile_kernel.encode_rgb8_plain(x).to(DEVICE)
+    f32 = torch.clamp(x.float().permute(1, 2, 0), 0.0, 1.0)
+    pinned = torch.empty(u8.shape, dtype=torch.uint8, pin_memory=True)
+    log("kernel", card=card_name, **entry,
+        bytes_ms_device_encode=wall_ms(
+            lambda: network_gui.image_to_bytes(tile_kernel.encode_rgb8(x))),
+        bytes_ms_host_encode=wall_ms(lambda: host_encode(x)),
+        copy_ms={"u8_pinned": wall_ms(lambda: pinned.copy_(u8)),
+                 "u8_pageable": wall_ms(lambda: u8.cpu()),
+                 "f32_pageable": wall_ms(lambda: f32.cpu())})
+    return entry
+
+
 def socket_phase(model_dir, setting, k_dup, cams, render_fn, card_name):
     """Serve 3 keep-alive requests from a server subprocess; compare the
     reply bytes with the in-process render of the same decoded camera."""
@@ -832,7 +900,7 @@ def pass_ms(fn, cams) -> float:
 # the port's kernel entry functions as the profiler names them
 PORT_KERNELS = ("expand_scan_kernel", "merge_expand_kernel", "render_kernel",
                 "blend_forward_kernel", "blend_backward_kernel",
-                "multi_cumsum_kernel")
+                "multi_cumsum_kernel", "encode_rgb8_kernel")
 
 
 def port_kernel_ms(rows):
@@ -3742,6 +3810,7 @@ def main() -> int:
     try:
         from gsplat_tpu_torch.raster import cuda_ext, scan_kernel
         from gsplat_tpu_torch.raster import tile_kernel
+        from gsplat_tpu_torch.viewer import serve
     except ImportError as e:
         print(f"chip_smoke: run it from a checkout of the repository ({e})",
               file=sys.stderr)
@@ -3768,39 +3837,46 @@ def main() -> int:
     check_small(card_name)
 
     # ---- serving main paths, launch counts zeroed just before each and
-    # read just after: one owner-expansion kernel and the render per frame
+    # read just after: one owner-expansion kernel, the render and the
+    # encode per frame; the encode's bf16 inputs recorded
     wrappers = {"expand_scan": scan_kernel.expand_scan,
                 "merge_expand": scan_kernel.merge_expand,
-                "render_forward": tile_kernel.render_forward}
-    per_frame = {"expand": ("expand_scan", "render_forward"),
-                 "merge": ("merge_expand", "render_forward")}
-    images, launches = {}, {}
+                "render_forward": tile_kernel.render_forward,
+                "encode_rgb8": tile_kernel.encode_rgb8}
+    per_frame = {"expand": ("expand_scan", "render_forward", "encode_rgb8"),
+                 "merge": ("merge_expand", "render_forward", "encode_rgb8")}
+    images, launches, raw = {}, {}, {}
     for setting, fn in render_fns.items():
         for w in wrappers.values():
             w.launches = 0
-        images[setting] = [fn(cam) for cam in cams]
+        rec = []
+        with capture(serve, "tile_kernel", rec, attr="encode_rgb8"):
+            images[setting] = [fn(cam) for cam in cams]
         torch.cuda.synchronize()
+        raw[setting] = [args[0] for args, _ in rec]
         launches[setting] = {name: w.launches for name, w in wrappers.items()}
         want = {name: len(cams) if name in per_frame[setting] else 0
                 for name in wrappers}
         if launches[setting] != want:
             raise AssertionError(f"{setting}: launches {launches[setting]}, "
                                  f"expected {want}")
+    kernels["encode_rgb8"] = check_encode(raw, images, card_name)
     for name in wrappers:
         kernels[name]["launches"] = sum(n[name] for n in launches.values())
     for setting, imgs in images.items():
         for img in imgs:
-            if img.shape != (HEIGHT, WIDTH, 3) or not bool(
-                    torch.isfinite(img).all()):
+            if img.shape != (HEIGHT, WIDTH, 3) or img.dtype != torch.uint8:
                 raise AssertionError(f"{setting}: bad image")
-            if float(img.mean()) < 0.02 or float(img.std()) < 0.02:
+            img01 = img.float() / 255
+            if float(img01.mean()) < 0.02 or float(img01.std()) < 0.02:
                 raise AssertionError(f"{setting}: trivial image")
     same = [bool(torch.equal(a, b)) for a, b in zip(images["expand"],
                                                      images["merge"])]
     if not all(same):
         raise AssertionError(f"expand and merge settings differ: {same}")
     log("serve", card=card_name, frames=2 * len(cams), launches=launches,
-        image_means=[round(float(i.mean()), 5) for i in images["expand"]],
+        image_means=[round(float(i.float().mean()) / 255, 5)
+                     for i in images["expand"]],
         settings_identical=True)
 
     # ---- over the socket
@@ -3833,7 +3909,8 @@ def main() -> int:
     passes = {setting: pass_ms(fn, cams) for setting, fn in render_fns.items()}
     quality(cap_slot=store["_slot_features"][0],
             cap_render=cap["render_forward"],
-            served=images["expand"][0], card_name=card_name)
+            served=torch.clamp(raw["expand"][0].float().permute(1, 2, 0),
+                               0.0, 1.0), card_name=card_name)
     # bench_torch's render stage in process: the bare 100k scene at 1080p
     launches[BENCH_RENDER_NAME], bench_render = bench_render_phase(
         wrappers, card_name)
@@ -3926,7 +4003,8 @@ def main() -> int:
     # not slowed by this process's profiles); this process first lets go
     # of what they do not need
     eval_state = trained["1m-1296x840"][0]
-    del sv, render_fns, store, cap, images, train_caps, swin_cap, trained
+    del sv, render_fns, store, cap, images, raw, train_caps, swin_cap
+    del trained
     del swin_trained, det_keep
     gc.collect()
     torch.cuda.empty_cache()
@@ -3954,7 +4032,7 @@ def main() -> int:
          if k in KERNEL_LINE_KEYS}
         for name in ("expand_scan", "merge_expand", "render_forward",
                      "tile_blend_forward", "tile_blend_backward",
-                     "multi_cumsum", "multi_cummax")]}))
+                     "multi_cumsum", "multi_cummax", "encode_rgb8")]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

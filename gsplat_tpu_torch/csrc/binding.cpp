@@ -1,8 +1,8 @@
 // PyTorch binding of the hand-written kernels (scan_kernels.cu,
-// render_kernel.cu, blend_kernels.cu). The only source that includes
-// torch/extension.h; the kernels themselves have a plain C interface so
-// nvcc never compiles PyTorch's headers. The Python wrappers in
-// raster/scan_kernel.py and
+// render_kernel.cu, blend_kernels.cu, encode_kernel.cu). The only source
+// that includes torch/extension.h; the kernels themselves have a plain C
+// interface so nvcc never compiles PyTorch's headers. The Python wrappers
+// in raster/scan_kernel.py and
 // raster/tile_kernel.py check device, dtype, shape and contiguity and
 // allocate every output; this file passes pointers and PyTorch's current
 // stream and raises when a launch is refused.
@@ -44,6 +44,8 @@ unsigned long long gsplat_multi_cummax_epoch_limit();
 int gsplat_multi_cummax(const int* x, int n, long long k, void* state,
                         unsigned long long epoch, int* out,
                         cudaStream_t stream);
+int gsplat_encode_rgb8(const void* img, long long n, void* out,
+                       cudaStream_t stream);
 }
 
 namespace {
@@ -167,6 +169,24 @@ void multi_cummax(torch::Tensor x, torch::Tensor state, int64_t epoch,
         "multi_cummax");
 }
 
+// img: [3, H, W] bf16, out: [H, W, 3] uint8, both contiguous on the card;
+// checked here too, since a host pointer would fault the kernel
+void encode_rgb8(torch::Tensor img, torch::Tensor out) {
+  TORCH_CHECK(img.is_cuda() && out.is_cuda() &&
+                  img.device() == out.device(),
+              "encode_rgb8: tensors on one CUDA device");
+  TORCH_CHECK(img.scalar_type() == torch::kBFloat16 &&
+                  out.scalar_type() == torch::kUInt8,
+              "encode_rgb8: bf16 in, uint8 out");
+  TORCH_CHECK(img.is_contiguous() && out.is_contiguous() &&
+                  img.dim() == 3 && img.size(0) == 3 &&
+                  out.numel() == img.numel(),
+              "encode_rgb8: contiguous [3, H, W] in, [H, W, 3] out");
+  check(gsplat_encode_rgb8(img.data_ptr(), img.numel() / 3, out.data_ptr(),
+                           stream()),
+        "encode_rgb8");
+}
+
 }  // namespace
 
 PYBIND11_MODULE(TORCH_EXTENSION_NAME, m) {
@@ -182,4 +202,5 @@ PYBIND11_MODULE(TORCH_EXTENSION_NAME, m) {
   m.def("multi_cummax_state_words", &multi_cummax_state_words);
   m.def("multi_cummax_epoch_limit", &multi_cummax_epoch_limit);
   m.def("multi_cummax", &multi_cummax);
+  m.def("encode_rgb8", &encode_rgb8);
 }

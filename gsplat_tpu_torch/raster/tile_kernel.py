@@ -1,11 +1,14 @@
 """Tile blends (port of gsplat_tpu/raster/tile_kernel.py): the inference
 render ``render_forward`` (TPU ``_render_kernel``) and the differentiable
 training blend ``tile_blend`` over ``tile_blend_forward`` (TPU
-``_fwd_kernel``) and ``tile_blend_backward`` (TPU ``_bwd_kernel``).
+``_fwd_kernel``) and ``tile_blend_backward`` (TPU ``_bwd_kernel``); and
+``encode_rgb8``, the served frame's uint8 bytes from the render's image
+(no TPU counterpart: the JAX server encodes on the host).
 
 Each wrapper takes a CUDA tensor to its hand-written Hopper kernel
-(``csrc/render_kernel.cu``, ``csrc/blend_kernels.cu``; both cull exactly
-by the rule in ``csrc/tile_common.cuh``) and adds one to its ``launches``
+(``csrc/render_kernel.cu``, ``csrc/blend_kernels.cu``, both culling
+exactly by the rule in ``csrc/tile_common.cuh``;
+``csrc/encode_kernel.cu``) and adds one to its ``launches``
 count, and a CPU tensor to the plain PyTorch version beside it. The
 kernels take every tile and chunk size the plain versions take: larger
 tiles run in groups of pixels, larger chunks in pieces.
@@ -164,6 +167,37 @@ def render_forward(feat, chunk_meta, bg, num_tiles: int, n_pix: int,
 
 
 render_forward.launches = 0
+
+
+def encode_rgb8_plain(img):
+    """Plain PyTorch version of ``encode_rgb8``: float32 clamp, ``* 255``,
+    ``+ 0.5``, each rounded on its own, truncated to uint8."""
+    x = img.float().clamp(0.0, 1.0) * 255.0 + 0.5
+    return x.to(torch.uint8).permute(1, 2, 0).contiguous()
+
+
+def encode_rgb8(img):
+    """The served frame's bytes: bf16 [3, H, W] (the inference image) ->
+    uint8 [H, W, 3], C-contiguous (the SIBR viewer's layout), each value
+    numpy's float32 ``clip(x, 0, 1) * 255 + 0.5`` cast to uint8
+    (``csrc/encode_kernel.cu``)."""
+    if img.dim() != 3 or img.shape[0] != 3:
+        raise ValueError(f"img must be [3, H, W], got {tuple(img.shape)}")
+    if img.dtype != torch.bfloat16:
+        raise ValueError(f"img must be bf16, got {img.dtype}")
+    if img.device.type == "cpu":
+        return encode_rgb8_plain(img)
+    if img.device.type != "cuda":
+        raise ValueError(f"img is on {img.device}, expected cpu or cuda")
+    img = img.contiguous()
+    out = torch.empty(img.shape[1], img.shape[2], 3, dtype=torch.uint8,
+                      device=img.device)
+    cuda_ext.load().encode_rgb8(img, out)
+    encode_rgb8.launches += 1
+    return out
+
+
+encode_rgb8.launches = 0
 
 
 # ------------------------------------------------------- training blend ----

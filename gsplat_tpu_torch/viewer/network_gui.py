@@ -14,6 +14,7 @@ from __future__ import annotations
 import json
 import math
 import socket
+import threading
 
 import numpy as np
 import torch
@@ -111,25 +112,48 @@ def request_to_camera(msg: dict, device: str | torch.device = "cuda"
     return camera, flags
 
 
-def image_to_bytes(img01) -> bytes:
-    """[H, W, 3] float in [0, 1] (numpy or tensor) -> the byte layout the
-    SIBR viewer expects (uint8 RGB, C-order).
+_PINNED = threading.local()
 
-    While tracing is on (``utils/profiling``), a CUDA tensor is waited for
-    before its copy, so that the copy's span times the copy alone: the
-    copy would wait for the same work."""
+
+def _pinned_frame(shape, device) -> torch.Tensor:
+    """A page-locked uint8 host buffer for frames of ``shape`` from
+    ``device``: one a (shape, device) and thread, made once and reused (a
+    frame's bytes leave it before ``image_to_bytes`` returns)."""
+    bufs = getattr(_PINNED, "bufs", None)
+    if bufs is None:
+        bufs = _PINNED.bufs = {}
+    key = (tuple(shape), device)
+    if key not in bufs:
+        bufs[key] = torch.empty(shape, dtype=torch.uint8, pin_memory=True)
+    return bufs[key]
+
+
+def image_to_bytes(img) -> bytes:
+    """The byte layout the SIBR viewer expects (uint8 RGB, C-order) of an
+    [H, W, 3] frame, numpy or tensor: uint8 (as ``serve.make_render_fn``
+    makes it on the device), or float in [0, 1] (clipped, scaled and cast
+    on the host).
+
+    A uint8 CUDA tensor is copied into a page-locked buffer. While tracing
+    is on (``utils/profiling``), a CUDA tensor is waited for before its
+    copy, so that the copy's span times the copy alone: the copy would
+    wait for the same work."""
     with profiling.span("serve.bytes"):
-        if isinstance(img01, torch.Tensor):
-            img01 = img01.detach()
+        if isinstance(img, torch.Tensor):
+            img = img.detach()
             if profiling.enabled():
-                if img01.is_cuda:
+                if img.is_cuda:
                     with profiling.span("serve.wait"):
-                        torch.cuda.current_stream(img01.device).synchronize()
+                        torch.cuda.current_stream(img.device).synchronize()
                 profiling.count("serve.d2h_bytes",
-                                img01.numel() * img01.element_size())
+                                img.numel() * img.element_size())
             with profiling.span("serve.copy"):
-                img01 = img01.cpu().numpy()
+                if img.dtype == torch.uint8 and img.is_cuda:
+                    img = _pinned_frame(img.shape, img.device).copy_(img)
+                img = img.cpu().numpy()
         with profiling.span("serve.encode"):
-            arr = np.asarray(img01)
+            arr = np.asarray(img)
+            if arr.dtype == np.uint8:
+                return arr.tobytes()
             return (np.clip(arr, 0, 1) * 255 + 0.5).astype(
                 np.uint8).tobytes()

@@ -8,8 +8,10 @@ Usage:
 
 Renders on the GPU through the inference rasterizer: bf16 feature stream,
 128x32 tiles, background composited in the kernel, duplicate budget
-``--dup_budget`` or 8 x cap_max. ``serve`` and ``make_render_fn`` take a
-``device``; on the CPU they run the kernels' plain PyTorch versions.
+``--dup_budget`` or 8 x cap_max; the reply's RGB bytes are made on the
+device and copied to the host through a page-locked buffer. ``serve``
+and ``make_render_fn`` take a ``device``; on the CPU they run the
+kernels' plain PyTorch versions.
 """
 
 from __future__ import annotations
@@ -25,6 +27,7 @@ from gsplat_tpu_torch import get_device
 from gsplat_tpu_torch.core.camera import CameraParams
 from gsplat_tpu_torch.model import gaussians
 from gsplat_tpu_torch.model.gaussians import GaussianState
+from gsplat_tpu_torch.raster import tile_kernel
 from gsplat_tpu_torch.raster.rasterize import RasterizeSettings, rasterize
 from gsplat_tpu_torch.utils.profiling import span
 from gsplat_tpu_torch.viewer import network_gui
@@ -42,7 +45,8 @@ def find_latest_iteration(model_path: str) -> int:
 def make_render_fn(state: GaussianState, k_dup: int, width: int,
                    height: int, device: str | torch.device = "cuda"):
     """The server's render for one resolution: camera, scaling modifier ->
-    [H, W, 3] float32 image clipped to [0, 1] on ``device``."""
+    the frame the viewer receives, uint8 [H, W, 3] on ``device``
+    (``tile_kernel.encode_rgb8`` of the bf16 image)."""
     device = get_device(device)
     settings = RasterizeSettings(k_dup=k_dup, inference=True,
                                  tile_x=TILE_X, tile_y=TILE_Y)
@@ -63,8 +67,7 @@ def make_render_fn(state: GaussianState, k_dup: int, width: int,
                             state.max_sh_degree, bg, settings,
                             scale_modifier=scaling_modifier, alive=alive)
             with span("raster.assemble"):
-                img = out.image.float().permute(1, 2, 0)
-                return torch.clamp(img, 0.0, 1.0)
+                return tile_kernel.encode_rgb8(out.image)
 
     return render
 

@@ -5,10 +5,11 @@ PyTorch is installed (the GPU host):
 
 - on the CPU, each plain PyTorch version is held against a numpy oracle
   written as a loop from the kernel's definition (exact for the integer
-  scans, float32 tolerance for the render);
+  scans, float32 tolerance for the render), and the served frame's encode
+  against the host's numpy encode (bit for bit);
 - ``gpu`` tests hold each CUDA kernel against its plain version on the same
-  inputs: the scans bit-equal, images within two bf16 ULPs. They skip on a
-  host without an NVIDIA GPU. Run them there with
+  inputs: the scans and the encode bit-equal, images within two bf16 ULPs.
+  They skip on a host without an NVIDIA GPU. Run them there with
   ``python -m pytest --noconftest -m gpu tests/test_torch_kernels.py``
   (``--noconftest``: tests/conftest.py configures JAX).
 
@@ -30,6 +31,7 @@ from gsplat_tpu_torch.raster import cuda_ext
 from gsplat_tpu_torch.raster import rasterize as trasterize
 from gsplat_tpu_torch.raster import scan_kernel as tscan
 from gsplat_tpu_torch.raster import tile_kernel as ttile
+from gsplat_tpu_torch.viewer import network_gui
 
 BG = [0.2, 0.3, 0.4]
 
@@ -891,6 +893,37 @@ def test_multi_cummax_plain_matches_loop(n, k):
         tscan.multi_cummax(torch.zeros(4, 6, dtype=torch.int32)[:, ::2])
 
 
+def all_bf16_frame(h=97, w=115, seed=0):
+    """bf16 [3, h, w] holding every finite bf16 value in [-0.25, 1.25]
+    (so the neighbours of each k/255 and (k + 0.5)/255, of 0 and of 1, and
+    values beyond them), shuffled, the rest of the frame repeating them.
+    The default shape is odd: h * w is no multiple of 4 or of a tile."""
+    bits = torch.from_numpy(np.arange(1 << 16, dtype=np.uint16).view(
+        np.int16)).view(torch.bfloat16)
+    x = bits.float()
+    vals = bits[torch.isfinite(x) & (x >= -0.25) & (x <= 1.25)]
+    n = 3 * h * w
+    assert vals.numel() <= n
+    perm = torch.from_numpy(np.random.default_rng(seed).permutation(n))
+    return vals.repeat(-(-n // vals.numel()))[:n][perm].reshape(3, h, w)
+
+
+def test_encode_rgb8_plain_matches_numpy_encode():
+    """The plain served-frame encode gives, bit for bit, the bytes of the
+    host's numpy encode of the float32 clamp (the server's bytes before
+    the encode moved to the device), over every bf16 value of [-0.25,
+    1.25]; every level 0-255 occurs."""
+    img = all_bf16_frame()
+    got = ttile.encode_rgb8(img)
+    assert got.dtype == torch.uint8 and got.shape == (97, 115, 3)
+    assert got.is_contiguous()
+    want = network_gui.image_to_bytes(
+        torch.clamp(img.float().permute(1, 2, 0), 0.0, 1.0))
+    assert got.numpy().tobytes() == want
+    assert torch.equal(ttile.encode_rgb8_plain(img), got)
+    assert torch.unique(got).numel() == 256
+
+
 def test_wrappers_reject_bad_inputs():
     i32 = torch.zeros(8, dtype=torch.int32)
     with pytest.raises(ValueError):
@@ -916,6 +949,10 @@ def test_wrappers_reject_bad_inputs():
                                   torch.zeros(1, 3, 256), n_pix=256, **kw)
     with pytest.raises(ValueError):
         tscan.multi_cumsum(torch.zeros(9, 10, dtype=torch.float64))
+    img = torch.zeros(3, 4, 5, dtype=torch.bfloat16)
+    for bad in (img.float(), img[0], img[:2], img.to("meta")):
+        with pytest.raises(ValueError):
+            ttile.encode_rgb8(bad)
 
 
 def test_extension_sources_and_flags():
@@ -1305,3 +1342,55 @@ def test_scatter_reduce_on_card_is_bit_reproducible(cuda):
     want = trasterize._scatter_reduce(d, g, p1)
     scale = float(want.abs().max())
     assert float((outs[0].cpu() - want).abs().max()) / scale <= 2e-6
+
+
+# (h, w, how): pixel counts that are and are not a multiple of 4, an input
+# 2 bytes past an aligned start, a sliced (non-contiguous) input
+ENCODE_CASES = [(97, 115, "plain"), (96, 128, "plain"), (1088, 1920, "plain"),
+                (96, 128, "offset"), (97, 116, "offset"), (96, 130, "sliced")]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("h,w,how", ENCODE_CASES)
+def test_encode_rgb8_cuda_matches_plain(cuda, h, w, how):
+    """The served-frame encode kernel bit-equal to its plain version on
+    every bf16 value of [-0.25, 1.25], aligned or not, one launch a call;
+    it refuses float32, rank 2 and host tensors."""
+    img = all_bf16_frame(h, w, seed=h * w)
+    want = ttile.encode_rgb8_plain(img)
+    x = img.to(cuda)
+    if how == "offset":
+        buf = torch.empty(x.numel() + 1, dtype=torch.bfloat16, device=cuda)
+        buf[1:] = x.reshape(-1)
+        x = buf[1:].view(3, h, w)
+    elif how == "sliced":
+        x = x[:, :, 1:]
+        want = ttile.encode_rgb8_plain(img[:, :, 1:])
+    before = ttile.encode_rgb8.launches
+    got = ttile.encode_rgb8(x)
+    torch.cuda.synchronize()
+    assert ttile.encode_rgb8.launches == before + 1
+    assert got.is_contiguous() and got.dtype == torch.uint8
+    assert torch.equal(got.cpu(), want)
+    for bad in (x.float(), x[0]):
+        with pytest.raises(ValueError):
+            ttile.encode_rgb8(bad)
+    out = torch.empty(want.shape, dtype=torch.uint8)
+    with pytest.raises(RuntimeError, match="CUDA device"):
+        cuda_ext.load().encode_rgb8(img, out)
+
+
+@pytest.mark.gpu
+def test_uint8_frame_copies_through_a_reused_pinned_buffer(cuda):
+    """A uint8 frame on the card: its bytes through one page-locked buffer
+    a shape, reused from call to call; float frames keep the host encode."""
+    frames = [torch.randint(0, 256, (64, 96, 3), dtype=torch.uint8)
+              for _ in range(3)]
+    for f in frames:
+        assert network_gui.image_to_bytes(f.to(cuda)) == f.numpy().tobytes()
+    buf = network_gui._pinned_frame((64, 96, 3), frames[0].to(cuda).device)
+    assert buf.is_pinned() and torch.equal(buf, frames[-1])
+    img = all_bf16_frame().to(cuda)
+    assert network_gui.image_to_bytes(ttile.encode_rgb8(img)) == \
+        network_gui.image_to_bytes(
+            torch.clamp(img.float().permute(1, 2, 0), 0.0, 1.0))

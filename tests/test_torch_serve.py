@@ -151,7 +151,8 @@ def test_sibr_request_over_loopback():
         assert verify == "model_dir"
         decoded, _ = network_gui.request_to_camera(client_message(cam), "cpu")
         want = render(decoded)
-        assert want.shape == (h, w, 3) and float(want.mean()) > 0.05
+        assert want.shape == (h, w, 3) and float(want.float().mean()) > \
+            0.05 * 255
         assert img == network_gui.image_to_bytes(want)
     assert replies[0][0] != replies[1][0]
     assert replies[2] == (b"", "model_dir")

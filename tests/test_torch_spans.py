@@ -7,6 +7,7 @@ and the benchmark readers that read them, on the CPU at tiny sizes.
   ``serve.make_render_fn`` and ``network_gui.image_to_bytes`` gives the
   frame's spans, nested under their roots with the roots' ids, and the
   ``serve.d2h_bytes`` counter; the bytes are those of the untraced path.
+  A uint8 frame alone: its own bytes, the same spans, 3 B a pixel.
 - Threads switching often lose no span and no count.
 - One clock: each span lies within 50 us of its ``record_function`` event
   in the profiler's own events.
@@ -137,7 +138,24 @@ def test_served_frame_spans(clean):
             assert s.parent == root.name
             assert root.start_ns <= s.start_ns <= s.end_ns <= root.end_ns
     assert len(got) == 1 + len(RENDER_CHILDREN) + 3
-    assert profiling.counters() == {"serve.d2h_bytes": W * H * 3 * 4}
+    assert profiling.counters() == {"serve.d2h_bytes": W * H * 3}
+
+
+def test_uint8_frame_bytes_and_spans(clean):
+    """A uint8 frame (the served frame's type) goes out as its own bytes,
+    through the same spans, counting its 3 B a pixel."""
+    frame = torch.randint(0, 256, (H, W, 3), dtype=torch.uint8,
+                          generator=torch.Generator().manual_seed(3))
+    with cpu_profile():
+        data = network_gui.image_to_bytes(frame)
+    assert data == frame.numpy().tobytes()
+    got = profiling.spans()
+    root = [s for s in got if s.name == "serve.bytes"]
+    assert len(root) == 1 and root[0].parent is None
+    assert [s.name for s in sorted(got, key=lambda s: s.start_ns)
+            if s is not root[0]] == ["serve.copy", "serve.encode"]
+    assert all(s.parent == "serve.bytes" for s in got if s is not root[0])
+    assert profiling.counters() == {"serve.d2h_bytes": H * W * 3}
 
 
 def _clock_offsets():
