@@ -3,9 +3,21 @@ gsplat_tpu/eval/render_stream.py).
 
 Loads the append-only matured-Gaussian stream that train_swin writes and,
 for each requested frame, renders every camera with the lifespan-active
-rows on the inference path (bf16 feature stream, 128x32 tiles, a
-duplicate budget of max(8 n, 65536) unless --dup_budget is given), so
+rows on the inference path (bf16 feature stream, 128x32 tiles), so
 playback runs the render kernel and an owner-expansion kernel.
+
+A frame's work is set by its live rows, not by the stream's length. Every
+row lives at most L frames, L the stream's largest ``end - start``
+(``swin_size`` for the rows that roll over, fewer for genesis rows), so
+the rows live at frame f are among those with ``end`` in (f, f + L].
+``load_stream_state`` orders the rows by ``end_frame`` (a stable sort),
+which makes those rows one contiguous slice, and keeps each frame's slice
+bounds and live-row count as host integers; a frame rasterizes its slice
+alone, masked by ``start <= f``. The activated columns (scales,
+unit quaternions, opacities, SH) are computed once, at load.
+
+The duplicate budget is ``--dup_budget``, else max(8 x the largest
+slice, 65536), rounded up to 128.
 
 Usage:
   python -m gsplat_tpu_torch.eval.render_stream -m <model_path> \
@@ -15,51 +27,132 @@ Usage:
 from __future__ import annotations
 
 import argparse
+import math
 import os
 
 import numpy as np
 import torch
 
 from gsplat_tpu_torch import get_device
+from gsplat_tpu_torch.core.camera import CameraParams
 from gsplat_tpu_torch.core.quaternion import normalize
 from gsplat_tpu_torch.data.scene import DynamicScene
 from gsplat_tpu_torch.eval.render import save_png
+from gsplat_tpu_torch.raster import tile_kernel
 from gsplat_tpu_torch.raster.rasterize import RasterizeSettings, rasterize
+from gsplat_tpu_torch.utils.profiling import count, span
 from gsplat_tpu_torch.utils.stream import stream_load
+from gsplat_tpu_torch.viewer.serve import TILE_X, TILE_Y
+
+# the columns rasterize takes, in its argument order
+COLUMNS = ("xyz", "scales", "quats", "opacities", "shs")
 
 
 def load_stream_state(model_path: str, device="cuda") -> dict:
-    """The stream's columns as float32 tensors on ``device`` (SH
-    concatenated into ``shs``) and its SH degree."""
+    """The stream ready for playback: its rows ordered by ``end_frame``
+    (stable), as float32 tensors on ``device``: ``xyz``, the activated
+    ``scales`` (exp), ``quats`` (unit), ``opacities`` [N] (sigmoid), ``shs``
+    (DC and rest concatenated) and ``start_frame``; its ``sh_degree``;
+    and, host integer arrays over frames 0 .. max end - 1, each frame's
+    slice ``slice_lo`` / ``slice_hi`` (the rows with end in (f, f + L])
+    and ``live_rows`` (start <= f < end)."""
     data = stream_load(os.path.join(model_path, "format.json"),
                        os.path.join(model_path, "streamable.dat"))
-    print(f"loaded {data['xyz'].shape[0]} streamed gaussians (sh degree "
-          f"{data['sh_degree']})")
-    out = {k: torch.as_tensor(np.asarray(data[k], np.float32), device=device)
-           for k in ("start_frame", "end_frame", "xyz", "rotation",
-                     "scaling", "opacity")}
-    out["shs"] = torch.as_tensor(
-        np.concatenate([data["f_dc"], data["f_rest"]], axis=1),
-        device=device)
-    out["sh_degree"] = int(data["sh_degree"])
+    n = data["xyz"].shape[0]
+    print(f"loaded {n} streamed gaussians (sh degree {data['sh_degree']})")
+    start, end = data["start_frame"], data["end_frame"]
+    order = np.argsort(end, kind="stable")
+    idx = torch.as_tensor(order, device=device)
+
+    def col(a):
+        return torch.as_tensor(np.asarray(a, np.float32),
+                               device=device).index_select(0, idx)
+
+    out = {"xyz": col(data["xyz"]),
+           "scales": torch.exp(col(data["scaling"])),
+           "quats": normalize(col(data["rotation"])),
+           "opacities": torch.sigmoid(col(data["opacity"])[:, 0]),
+           "shs": col(np.concatenate([data["f_dc"], data["f_rest"]], 1)),
+           "start_frame": col(start), "sh_degree": int(data["sh_degree"])}
+    life = int((end - start).max()) if n else 0
+    n_frames = int(end.max()) if n else 0
+    frames = np.arange(n_frames)
+    end_sorted = end[order]
+    out["slice_lo"] = np.searchsorted(end_sorted, frames, side="right")
+    out["slice_hi"] = np.searchsorted(end_sorted, frames + life,
+                                      side="right")
+    born = np.cumsum(np.bincount(start, minlength=n_frames + 1))
+    gone = np.cumsum(np.bincount(end, minlength=n_frames + 1))
+    out["live_rows"] = (born - gone)[:n_frames]
     return out
+
+
+def frame_rows(data: dict, frame: float) -> tuple[int, int, int]:
+    """(lo, hi, live): the slice [lo, hi) of ``load_stream_state``'s rows
+    that holds every row live at ``frame``, and how many are live; host
+    integers, no device sync. Empty outside the stream's frames."""
+    f = math.floor(frame)
+    if not 0 <= f < len(data["slice_lo"]):
+        return 0, 0, 0
+    return (int(data["slice_lo"][f]), int(data["slice_hi"][f]),
+            int(data["live_rows"][f]))
+
+
+def dup_budget(data: dict) -> int:
+    """The CLI's default duplicate budget: max(8 x the largest slice,
+    65536)."""
+    hi, lo = data["slice_hi"], data["slice_lo"]
+    widest = int((hi - lo).max()) if len(lo) else 0
+    return max(8 * widest, 1 << 16)
+
+
+def _rasterize_frame(data: dict, camera: CameraParams, frame: float, bg,
+                     settings: RasterizeSettings):
+    """rasterize of the frame's slice, its rows alive where
+    start <= frame."""
+    with span("stream.select"):
+        lo, hi, live = frame_rows(data, frame)
+        count("stream.slice_rows", hi - lo)
+        count("stream.live_rows", live)
+        rows = [data[k][lo:hi] for k in COLUMNS]
+        alive = data["start_frame"][lo:hi] <= frame
+    return rasterize(*rows, camera, data["sh_degree"], bg, settings,
+                     alive=alive)
 
 
 @torch.no_grad()
 def render_stream_frame(data: dict, camera, frame: float, bg, settings):
-    """Render one frame from ``load_stream_state``'s columns: the rows with
+    """Render one frame from ``load_stream_state``'s stream: the rows with
     start <= frame < end, without rigid motion (the stream format carries
     none, stream_utils.py:16-32, so the reference's playback drops it
     too) -> [H, W, 3] float32 in [0, 1]."""
-    active = (data["start_frame"] <= frame) & (data["end_frame"] > frame)
-    out = rasterize(data["xyz"], torch.exp(data["scaling"]),
-                    normalize(data["rotation"]),
-                    torch.sigmoid(data["opacity"])[:, 0], data["shs"],
-                    camera, data["sh_degree"], bg, settings, alive=active)
-    img = out.image
+    img = _rasterize_frame(data, camera, frame, bg, settings).image
     if settings.inference:  # [3, H, W] bf16 -> [H, W, 3] float32
         img = img.float().permute(1, 2, 0)
     return torch.clamp(img, 0.0, 1.0)
+
+
+def make_stream_render_fn(stream: dict, k_dup: int, width: int,
+                          height: int, device: str | torch.device = "cuda"):
+    """The player's render for one resolution: camera, frame -> the frame
+    a viewer receives, uint8 [H, W, 3] on ``device``
+    (``tile_kernel.encode_rgb8`` of the bf16 inference image, 128x32
+    tiles, as ``viewer/serve.make_render_fn``)."""
+    device = get_device(device)
+    settings = RasterizeSettings(k_dup=k_dup, inference=True,
+                                 tile_x=TILE_X, tile_y=TILE_Y)
+    bg = torch.zeros(3, dtype=torch.float32, device=device)
+
+    def render(camera: CameraParams, frame: float):
+        if (camera.width, camera.height) != (width, height):
+            raise ValueError(f"camera is {camera.width}x{camera.height}, "
+                             f"this render is {width}x{height}")
+        with span("stream.render"):
+            out = _rasterize_frame(stream, camera, frame, bg, settings)
+            with span("raster.assemble"):
+                return tile_kernel.encode_rgb8(out.image)
+
+    return render
 
 
 def main(argv=None):
@@ -79,9 +172,10 @@ def main(argv=None):
     device = get_device(args.data_device)
     data = load_stream_state(args.model_path, device)
     # playback is inference: bf16 stream, 128x32 tiles
-    k_dup = args.dup_budget or max(8 * data["xyz"].shape[0], 1 << 16)
+    k_dup = args.dup_budget or dup_budget(data)
     settings = RasterizeSettings(k_dup=-(-k_dup // 128) * 128,
-                                 inference=True, tile_x=128, tile_y=32)
+                                 inference=True, tile_x=TILE_X,
+                                 tile_y=TILE_Y)
     scene = DynamicScene(args.source_path, "", resolution=args.resolution,
                          max_frame=args.max_frame, min_frame=args.min_frame,
                          shuffle=False, device=device)
@@ -96,7 +190,7 @@ def main(argv=None):
             out_dir = os.path.join(args.model_path, split, "stream",
                                    "renders")
             gt_dir = os.path.join(args.model_path, split, "stream", "gt")
-            count = 0
+            views = 0
             for f in range(lo, hi):
                 for cam_obj in getter([f]):
                     camera, gt = cam_obj.load()
@@ -107,8 +201,8 @@ def main(argv=None):
                              img.cpu().numpy())
                     save_png(os.path.join(gt_dir, f"{name}.png"), gt)
                     cam_obj.unload()
-                    count += 1
-            print(f"rendered {count} {split} views -> {out_dir}")
+                    views += 1
+            print(f"rendered {views} {split} views -> {out_dir}")
     finally:
         scene.close()
 
