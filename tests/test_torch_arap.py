@@ -34,6 +34,7 @@ from gsplat_tpu_torch.train.config import OptimizationConfig
 from tests.test_torch_core import jax_state
 from tests.test_torch_parallel import cam_spec, jcam, tcam
 from tests.test_torch_swin import SWIN_FIELDS, swin_leaves
+from tests.torch_threads import one_torch_thread  # noqa: F401
 
 T = torch.from_numpy
 ARAP_W = (0.1, 0.1, 0.1)

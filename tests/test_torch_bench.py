@@ -43,6 +43,7 @@ from gsplat_tpu.model import gaussians as jgauss
 from gsplat_tpu.model import swin as jswin
 from gsplat_tpu.raster import binning as jbinning
 from gsplat_tpu.raster import project as jproject
+from tests.torch_threads import one_torch_thread  # noqa: F401
 
 REPO = pathlib.Path(__file__).resolve().parents[1]
 TILE = (64, 16)   # bench.py's default BENCH_TILE_X x BENCH_TILE_Y
@@ -63,17 +64,6 @@ def _same(got, want, exact, rtol=1e-6):
     else:
         np.testing.assert_allclose(_np(got), _np(want), rtol=rtol,
                                    atol=1e-6)
-
-
-@pytest.fixture(scope="module", autouse=True)
-def one_torch_thread():
-    """torch on one thread in this module: the test run shares the cores
-    among its workers, and under that load torch's own thread pool made
-    the CPU bench run many times slower than alone."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 @pytest.fixture(scope="module")

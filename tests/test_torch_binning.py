@@ -28,6 +28,7 @@ from gsplat_tpu_torch.raster import scan_kernel as tscan
 from tests.test_torch_core import jax_state
 from tests.test_torch_kernels import (MERGE_CASES, expand_case, make_params,
                                       merge_case)
+from tests.torch_threads import one_torch_thread  # noqa: F401
 
 
 @pytest.mark.parametrize("k", [700, 3 * 4096 + 511, 5 * 4096])

@@ -46,6 +46,7 @@ from gsplat_tpu_torch.utils import profiling
 from tests.test_torch_core import jax_state
 from tests.test_torch_kernels import make_params
 from tests.test_torch_swin import state_pair
+from tests.torch_threads import one_torch_thread  # noqa: F401
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 BLENDER = os.path.join(ROOT, "tests", "fixtures", "quality_blender")

@@ -32,6 +32,7 @@ from gsplat_tpu_torch.model import gaussians as tgauss
 from gsplat_tpu_torch.raster import project as tproject
 from gsplat_tpu_torch.raster import rasterize as trasterize
 from tests.test_torch_kernels import make_params
+from tests.torch_threads import one_torch_thread  # noqa: F401
 
 REPO = pathlib.Path(__file__).resolve().parents[1]
 TOL = dict(rtol=1e-5, atol=1e-5)

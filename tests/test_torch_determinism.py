@@ -42,6 +42,7 @@ from gsplat_tpu_torch.train import step as tstep
 from gsplat_tpu_torch.train import swin_step as tsstep
 from tests.test_torch_swin import state_pair
 from tests.test_torch_train import _states
+from tests.torch_threads import one_torch_thread  # noqa: F401
 
 # the module (the package exports a function of the same name)
 jrasterize = importlib.import_module("gsplat_tpu.raster.rasterize")

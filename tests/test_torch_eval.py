@@ -49,6 +49,7 @@ from gsplat_tpu_torch.eval import render as trender
 from gsplat_tpu_torch.model import gaussians as tgauss
 from gsplat_tpu_torch.train import config as tconfig
 from gsplat_tpu_torch.train import train_static as ttrain
+from tests.torch_threads import one_torch_thread  # noqa: F401
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 FIXTURE = os.path.join(ROOT, "tests", "fixtures", "quality_blender")

@@ -32,6 +32,7 @@ from gsplat_tpu_torch.raster import rasterize as trasterize
 from gsplat_tpu_torch.raster import scan_kernel as tscan
 from gsplat_tpu_torch.raster import tile_kernel as ttile
 from gsplat_tpu_torch.viewer import network_gui
+from tests.torch_threads import one_torch_thread  # noqa: F401
 
 BG = [0.2, 0.3, 0.4]
 

@@ -67,6 +67,7 @@ from tests.test_torch_core import jax_state
 from tests.test_torch_kernels import make_params
 from tests.test_torch_swin import state_pair, swin_leaves
 from tests.torch_parallel_ranks import run_cases
+from tests.torch_threads import one_torch_thread  # noqa: F401
 
 T = torch.from_numpy
 SH = 1

@@ -41,6 +41,7 @@ from gsplat_tpu_torch.raster import rasterize as trasterize
 from gsplat_tpu_torch.raster import tile_kernel as ttile
 from tests.test_torch_core import jax_state
 from tests.test_torch_kernels import make_params
+from tests.torch_threads import one_torch_thread  # noqa: F401
 
 BG = [0.2, 0.3, 0.4]
 

@@ -27,6 +27,7 @@ from gsplat_tpu_torch.model import gaussians as tgauss
 from gsplat_tpu_torch.viewer import network_gui, serve
 from tests.test_torch_core import jax_state
 from tests.test_torch_kernels import make_params
+from tests.torch_threads import one_torch_thread  # noqa: F401
 
 LEAVES = ("xyz", "f_dc", "f_rest", "opacity", "scaling", "rotation")
 

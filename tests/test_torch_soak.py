@@ -44,6 +44,7 @@ from gsplat_tpu.model import swin as jswin
 from gsplat_tpu.train import step as jstep
 from gsplat_tpu.train import swin_step as jsstep
 from gsplat_tpu.train import train_swin as jtrain_swin
+from tests.torch_threads import one_torch_thread  # noqa: F401
 
 # the modules themselves (the packages' ``rasterize`` attribute is the
 # function)
@@ -64,16 +65,6 @@ soak_30k = _load("soak_30k")
 soak_swin = _load("soak_swin")
 tsoak_30k = _load("torch_soak_30k")
 tsoak_swin = _load("torch_soak_swin")
-
-
-@pytest.fixture(scope="module", autouse=True)
-def one_torch_thread():
-    """torch on one thread in this module: the test run shares the cores
-    among its workers."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 class _Metrics(NamedTuple):

@@ -28,6 +28,7 @@ from gsplat_tpu_torch.model import gaussians as tgauss
 from gsplat_tpu_torch.utils import profiling
 from gsplat_tpu_torch.viewer import network_gui, serve
 from tests.test_torch_kernels import make_params
+from tests.torch_threads import one_torch_thread  # noqa: F401
 
 W, H = 64, 32
 RENDER_CHILDREN = ["raster.preprocess", "raster.binning", "raster.gather",

@@ -27,6 +27,7 @@ from gsplat_tpu_torch.core.camera import camera_from_matrices
 from gsplat_tpu_torch.eval import render_stream
 from gsplat_tpu_torch.utils import profiling
 from gsplat_tpu_torch.viewer import network_gui
+from tests.torch_threads import one_torch_thread  # noqa: F401
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CFG = {"cap_max": 2000, "swin_size": 4, "sh_degree": 1, "frames": 12,
@@ -53,7 +54,6 @@ def config():
 @pytest.fixture(scope="module")
 def played(tmp_path_factory):
     """(the benchmark's columns, the player's loaded stream)."""
-    torch.set_num_threads(2)
     cols = streams.stream_columns(config(), "cpu", 3000000000171)
     d = str(tmp_path_factory.mktemp("stream"))
     streams.write_stream(cols, d, 1)

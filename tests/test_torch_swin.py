@@ -48,6 +48,7 @@ from gsplat_tpu_torch.train import swin_step as tsstep
 from gsplat_tpu_torch.train.config import OptimizationConfig
 from tests.test_torch_core import jax_state
 from tests.test_torch_kernels import make_params
+from tests.torch_threads import one_torch_thread  # noqa: F401
 
 T = torch.from_numpy
 W, H, TILE = 64, 48, 16

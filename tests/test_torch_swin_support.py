@@ -40,6 +40,7 @@ from gsplat_tpu_torch.model import swin as tswin
 from gsplat_tpu_torch.raster import scan_kernel as tscan
 from gsplat_tpu_torch.utils import stream as tstream
 from tests.test_torch_swin import state_pair
+from tests.torch_threads import one_torch_thread  # noqa: F401
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 DYN_FIXTURE = os.path.join(ROOT, "tests", "fixtures", "quality_cudaport_dyn")

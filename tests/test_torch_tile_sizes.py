@@ -36,6 +36,7 @@ from gsplat_tpu_torch.raster import rasterize as trasterize
 from gsplat_tpu_torch.raster import tile_kernel as ttile
 from tests.test_reference_port import BG, SH_DEGREE, make_scene
 from tests.test_torch_kernels import blend_loop
+from tests.torch_threads import one_torch_thread  # noqa: F401
 
 TILE_X, TILE_Y, CHUNK = 128, 32, 256
 WIDTH, HEIGHT = TILE_X, TILE_Y   # one tile

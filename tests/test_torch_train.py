@@ -42,6 +42,7 @@ from gsplat_tpu_torch.train import train_static as ttrain_static
 from gsplat_tpu_torch.train.config import OptimizationConfig
 from tests.test_torch_core import jax_state
 from tests.test_torch_kernels import make_params
+from tests.torch_threads import one_torch_thread  # noqa: F401
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 T = torch.from_numpy

@@ -41,6 +41,7 @@ from tests import reference_port as refp
 from tests.test_reference_port import (BG, GOLDEN, HEIGHT, SH_DEGREE, WIDTH,
                                        cam_arrays, make_scene, run_oracle)
 from tests.test_torch_kernels import make_params
+from tests.torch_threads import one_torch_thread  # noqa: F401
 
 TILE = 16
 SETTINGS = trasterize.RasterizeSettings(k_dup=1 << 14, tile_x=TILE,
