@@ -29,9 +29,9 @@ inputs are the JAX bench's, bit for bit where numpy draws them:
                    raises on a miss
   train_stage      100k Gaussians at 800x800, 8 orbit cameras (bench.py:
                    254-335)
-  render_stage     the inference path at 1920x1088 with 128x32 tiles on the
-                   bare 100k-Gaussian _make_scene(seed=0) scene, 8 cameras
-                   (bench.py:337-376)
+  render_stage     the served frame (render_frame) at 1920x1088 with 128x32
+                   tiles on the bare 100k-Gaussian _make_scene(seed=0)
+                   scene, 8 cameras (bench.py:337-376)
   train_1m_stage   1M Gaussians with a trained scene's opacity and scale
                    statistics at 1296x840, 4 cameras (bench.py:378-430)
   swin_stage       SwinGS: 200k immature + 200k matured rows, swin 8, SH 1,
@@ -407,11 +407,9 @@ def swin_setup(device, rng, cfg, p_gt, k_gt, tile):
 def render_setup(device, cfg):
     """The render stage's scene and budget (bench.py:342-360): the bare
     _make_scene(cfg["p"], 3, seed=0) scene, cfg["cams"] orbit cameras, the
-    inference path at cfg["tile"] tiles; num_dup on every camera probed at
-    8 x P, the budget that max x 1.02 rounded up to chunk x 8. Returns
-    dict(scene, cams, settings, need)."""
-    import dataclasses as dc
-
+    served frame (``render_frame``) at cfg["tile"] tiles; num_dup on every
+    camera probed at 8 x P, the budget that max x 1.02 rounded up to chunk
+    x 8. Returns dict(scene, cams, need, k_dup)."""
     import torch
 
     from gsplat_tpu_torch.raster import rasterize as rast
@@ -419,14 +417,11 @@ def render_setup(device, cfg):
     bg = torch.zeros(3, device=device)
     scene = make_scene_params(cfg["p"], SH_DEGREE, 0, device)
     cams = orbit_cameras(cfg["cams"], cfg["width"], cfg["height"], device)
-    probe = rast.RasterizeSettings(k_dup=8 * cfg["p"], tile_x=cfg["tile"][0],
-                                   tile_y=cfg["tile"][1], chunk=CHUNK,
-                                   inference=True)
-    with torch.no_grad():
-        need = max(int(rast.rasterize(*scene, c, SH_DEGREE, bg,
-                                      probe).num_dup) for c in cams)
-    return dict(scene=scene, cams=cams, need=need,
-                settings=dc.replace(probe, k_dup=render_k_dup(need)))
+    tile_x, tile_y = cfg["tile"]
+    need = max(int(rast.render_frame(*scene, c, SH_DEGREE, bg, 8 * cfg["p"],
+                                     tile_x=tile_x, tile_y=tile_y)[1])
+               for c in cams)
+    return dict(scene=scene, cams=cams, need=need, k_dup=render_k_dup(need))
 
 
 def render_k_dup(need):
@@ -584,8 +579,6 @@ def golden_replay(inp):
     1e-3, deltas rel-L2 <= 3e-2 over the entries whose gradient is >=
     SIGN_FLOOR of the leaf's max. Returns the measured values; raises on a
     miss."""
-    import dataclasses as dc
-
     import torch
 
     from gsplat_tpu_torch.model import gaussians, optim
@@ -599,9 +592,9 @@ def golden_replay(inp):
     with torch.no_grad():
         train_img = rast.rasterize(*inp["scene"], cam, SH_DEGREE, bg,
                                    settings).image
-        infer_img = rast.rasterize(*inp["scene"], cam, SH_DEGREE, bg,
-                                   dc.replace(settings, inference=True)
-                                   ).image.float()
+    infer_img = rast.render_image(*inp["scene"], cam, SH_DEGREE, bg,
+                                  settings.k_dup, tile_x=settings.tile_x,
+                                  tile_y=settings.tile_y)[0].float()
     state = gaussians.create_from_points(inp["pts"], inp["colors"],
                                          g["p_model"], SH_DEGREE,
                                          device=gt.device)
@@ -718,10 +711,10 @@ def train_stage(device, rng, gt):
 
 
 def render_stage(device, rng):
-    """The inference path at 1920x1088 with 128x32 tiles on the bare 100k
-    scene (bench.py:337-376): the probe, one pass over the cameras, then 3
-    windows of 48 frames (camera i % 8), each ending on a synchronise.
-    Draws nothing from ``rng``."""
+    """The served frame (``render_frame``) at 1920x1088 with 128x32 tiles
+    on the bare 100k scene (bench.py:337-376): the probe, one pass over
+    the cameras, then 3 windows of 48 frames (camera i % 8), each ending
+    on a synchronise. Draws nothing from ``rng``."""
     del rng
     import torch
 
@@ -729,24 +722,25 @@ def render_stage(device, rng):
 
     cfg = sizes(device)["render"]
     rs = render_setup(device, cfg)
-    cams, settings = rs["cams"], rs["settings"]
-    log(f"render dup budget {settings.k_dup} (need {rs['need']})")
+    cams, k_dup = rs["cams"], rs["k_dup"]
+    tile_x, tile_y = cfg["tile"]
+    log(f"render dup budget {k_dup} (need {rs['need']})")
     bg = torch.zeros(3, device=device)
 
     def run(i):
-        return rast.rasterize(*rs["scene"], cams[i % len(cams)], SH_DEGREE,
-                              bg, settings).image
+        return rast.render_frame(*rs["scene"], cams[i % len(cams)],
+                                 SH_DEGREE, bg, k_dup, tile_x=tile_x,
+                                 tile_y=tile_y)[0]
 
     def done(img):
         sync(device)
         return img
 
-    with torch.no_grad():
-        for i in range(len(cams)):
-            run(i)
-        sync(device)
-        ms, imgs = timed_windows(run, cfg["frames"], done)
-    img = imgs[-1].float()
+    for i in range(len(cams)):
+        run(i)
+    sync(device)
+    ms, imgs = timed_windows(run, cfg["frames"], done)
+    img = imgs[-1].float() / 255
     if not (bool(torch.isfinite(img).all()) and float(img.max()) > 0.05):
         raise AssertionError("render produced a degenerate image")
     fps = statistics.median(1e3 / x for x in ms)

@@ -65,8 +65,9 @@ the result line is printed:
   quality      the served frame vs the plain render of an f32 stream
   bench_render bench_torch.render_stage in process (the bare 100k scene
                at 1920x1088, 128x32 tiles: no dead rows, expand_scan),
-               counts zeroed: one expand_scan and one render_forward a
-               frame (8 probe, 8 warm, 3 x 48 timed), nothing else; the
+               counts zeroed: one expand_scan, one render_forward and
+               one encode_rgb8 a frame (8 probe, 8 warm, 3 x 48 timed),
+               nothing else; the
                probed num_dup against the TPU record (rel <= 1e-3)
   train_probe  per training setting (swin too, at frame 0): num_dup per
                camera against the TPU record (rel <= 1e-3, bench.py's
@@ -178,7 +179,8 @@ the result line is printed:
                each later tick 25k, the stream holds their sum with
                mature_rest's, one blend backward and one multi_cumsum a
                step, playback finite (its PSNR against the GT logged, not
-               gated); the playback frame's blend forward and owner
+               gated; one render, one encode and one owner expansion a
+               played frame); the first played frame's render and owner
                expansion held against their plain versions
   parallel     (after the profiles, in processes of their own) four gloo
                ranks sharing the card: dp, pshard and dp x ps (2 x 2) at
@@ -196,8 +198,8 @@ the result line is printed:
   swin_cli     train_swin.main on the dynamic fixture (the flags of
                tests/test_stream_semantic.py), stream playback vs the
                direct render (>= 24 dB) and vs GT (>= 15 dB), then
-               render_stream.main: one render and one owner expansion a
-               view
+               render_stream.main: one render, one owner expansion and
+               one encode a view
   profile      device time by kernel, serving, after every unprofiled
                timing (the port's kernels each by name: their own device
                time); the idle share against the unprofiled frame time
@@ -422,9 +424,8 @@ def probe_serving(card_name):
 
     # num_dup per camera; kernel inputs of camera 0
     k_expand = 8 * CAP_MAX
-    settings = rast.RasterizeSettings(k_dup=k_expand, inference=True,
-                                      tile_x=serve.TILE_X,
-                                      tile_y=serve.TILE_Y)
+    rows = (state.xyz, state.get_scaling(), state.get_rotation(),
+            state.get_opacity()[:, 0], state.get_features())
     bg = torch.zeros(3, device=DEVICE)
     cap = {}
     store = {k: [] for k in ("expand_scan", "merge_expand", "render_forward",
@@ -440,12 +441,9 @@ def probe_serving(card_name):
                                          attr="render_forward"))
                 st.enter_context(capture(rast, "_slot_features",
                                          store["_slot_features"]))
-            out = rast.rasterize(state.xyz, state.get_scaling(),
-                                 state.get_rotation(),
-                                 state.get_opacity()[:, 0],
-                                 state.get_features(), cam, SH_DEGREE, bg,
-                                 settings, alive=state.alive_mask)
-            need.append(int(out.num_dup))
+            _, num_dup = rast.render_frame(*rows, cam, SH_DEGREE, bg,
+                                           k_expand, alive=state.alive_mask)
+            need.append(int(num_dup))
     k_merge = MERGE_BUDGET
     if max(need) > k_merge:   # bench.py's rule: need x 1.02 to 1024
         k_merge = -(-int(max(need) * 1.02) // 1024) * 1024
@@ -724,10 +722,9 @@ def check_small(card_name):
     """300 Gaussians, 256x64 at 128x32 tiles: card vs the CPU port."""
     import torch
 
-    from gsplat_tpu_torch import renderer
     from gsplat_tpu_torch.core.camera import make_camera
     from gsplat_tpu_torch.model import gaussians
-    from gsplat_tpu_torch.raster.rasterize import RasterizeSettings
+    from gsplat_tpu_torch.raster.rasterize import render_image
 
     rng = np.random.default_rng(1)
     cap, n = 400, 300
@@ -741,21 +738,22 @@ def check_small(card_name):
     par["opacity"][:n] = rng.uniform(-2, 6, (n, 1))
     par["scaling"][:n] = rng.uniform(-3.5, -1.5, (n, 3))
     par["rotation"][:n] = rng.normal(size=(n, 4))
-    settings = RasterizeSettings(k_dup=1536, tile_x=128, tile_y=32,
-                                 inference=True)
     imgs = []
     for dev in ("cpu", DEVICE):
         state = gaussians.state_from_numpy(par, n, 1, dev)
         cam = make_camera(np.eye(3), np.zeros(3), 0.9, 0.7, 256, 64,
                           device=dev)
-        imgs.append(renderer.render(cam, state, [0.2, 0.3, 0.4], settings))
+        imgs.append(render_image(
+            state.xyz, state.get_scaling(), state.get_rotation(),
+            state.get_opacity()[:, 0], state.get_features(), cam, 1,
+            [0.2, 0.3, 0.4], 1536, alive=state.alive_mask))
     torch.cuda.synchronize()
-    want, got = imgs[0]["render"].float(), imgs[1]["render"].float().cpu()
-    if int(imgs[0]["num_dup"]) != int(imgs[1]["num_dup"]):
+    want, got = imgs[0][0].float(), imgs[1][0].float().cpu()
+    if int(imgs[0][1]) != int(imgs[1][1]):
         raise AssertionError("num_dup differs between card and CPU")
     if not within_bf16_ulps(got, want):
         raise AssertionError("small scene: card vs CPU port beyond 2 ULPs")
-    log("small", card=card_name, num_dup=int(imgs[1]["num_dup"]),
+    log("small", card=card_name, num_dup=int(imgs[1][1]),
         max_abs_err=float((got - want).abs().max()), mean=float(got.mean()))
 
 
@@ -773,8 +771,8 @@ def check_encode(raw, images, card_name):
     from gsplat_tpu_torch.viewer import network_gui
 
     def host_encode(img):
-        return network_gui.image_to_bytes(
-            torch.clamp(img.float().permute(1, 2, 0), 0.0, 1.0))
+        x = img.float().permute(1, 2, 0).cpu().numpy()
+        return (np.clip(x, 0, 1) * 255 + 0.5).astype(np.uint8).tobytes()
 
     differ = frames = 0
     for setting, imgs in raw.items():
@@ -982,9 +980,9 @@ BENCH_RENDER_TPU = dict(num_dup=859_464, k_dup=877_568)
 
 def bench_render_phase(wrappers, card_name):
     """bench_torch.render_stage in process at its full size, counts zeroed
-    just before it and read just after: one expand_scan and one
-    render_forward a frame (the probe's, the warm pass's and the windows'),
-    nothing else; its probed num_dup held to the TPU's record. Returns
+    just before it and read just after: one expand_scan, one
+    render_forward and one encode_rgb8 a frame (the probe's, the warm
+    pass's and the windows'), nothing else; its probed num_dup held to the TPU's record. Returns
     (launches, the stage's result)."""
     import torch
 
@@ -998,7 +996,8 @@ def bench_render_phase(wrappers, card_name):
     launches = {k: w.launches for k, w in wrappers.items()}
     frames = 2 * cfg["cams"] + 3 * cfg["frames"]
     want = {k: 0 for k in wrappers}
-    want.update(expand_scan=frames, render_forward=frames)
+    want.update(expand_scan=frames, render_forward=frames,
+                encode_rgb8=frames)
     if launches != want:
         raise AssertionError(f"{BENCH_RENDER_NAME}: launches {launches}, "
                              f"expected {want}")
@@ -2073,9 +2072,9 @@ def swin_slide(st, state, adam, gen, wrappers, card_name):
 def swin_cli(wrappers, card_name):
     """train_swin.main on a copy of the dynamic fixture with
     tests/test_stream_semantic.py's flags, then playback: the stream vs the
-    direct deformable render of the final state (gate 24 dB) and vs the
-    ground truth (gate 15 dB) at that test's settings; then
-    render_stream.main on the inference path, counts zeroed before it."""
+    direct render of the final state (gate 24 dB, the direct one at that
+    test's settings) and vs the ground truth (gate 15 dB); then
+    render_stream.main, counts zeroed before it."""
     import shutil
 
     import torch
@@ -2114,7 +2113,7 @@ def swin_cli(wrappers, card_name):
             for cam_obj in dyn.get_test_cams_at([f]):
                 camera, gt = cam_obj.load()
                 s_img = render_stream.render_stream_frame(
-                    data, camera, float(f), bg, settings)
+                    data, camera, float(f), bg, 8192).float() / 255
                 d_img = rast.rasterize(
                     union["means3d"], union["scales"], union["quats"],
                     union["opacities"], union["shs"], camera,
@@ -2139,9 +2138,10 @@ def swin_cli(wrappers, card_name):
     views = len(os.listdir(os.path.join(out, "test", "stream", "renders")))
     owner = launches["expand_scan"] + launches["merge_expand"]
     others = sum(v for k, v in launches.items()
-                 if k not in ("expand_scan", "merge_expand", "render_forward"))
+                 if k not in ("expand_scan", "merge_expand", "render_forward",
+                              "encode_rgb8"))
     if (views != 4 or launches["render_forward"] != views or owner != views
-            or others):
+            or launches["encode_rgb8"] != views or others):
         raise AssertionError(f"swin_cli playback: {views} views, launches "
                              f"{launches}")
     log("swin_cli", card=card_name, seconds=seconds,
@@ -3005,7 +3005,8 @@ def soak_swin_phase(wrappers, card_name):
     60 and 30 iterations are too short for a quality floor); launches (one
     blend backward and one multi_cumsum a training step: the 400k-row
     union reduces by segment sums; one blend forward and one owner
-    expansion a render)."""
+    expansion a training render; one render, one encode and one owner
+    expansion a played frame)."""
     import argparse
 
     import torch
@@ -3050,9 +3051,10 @@ def soak_swin_phase(wrappers, card_name):
                              f"blend forward")
     for w in wrappers.values():
         w.launches = 0
-    store = {}
+    store, renders = {}, []
     frames = len(range(0, args.frames, max(args.frames // 8, 1)))
-    with capture_step(store):
+    with capture_step(store), capture(rast, "tile_kernel", renders,
+                                      attr="render_forward"):
         psnrs, records = sw.playback(soak, args.out)
     torch.cuda.synchronize()
     pb_launches = {k: w.launches for k, w in wrappers.items()}
@@ -3060,20 +3062,20 @@ def soak_swin_phase(wrappers, card_name):
             math.isfinite(p) for _, p in psnrs):
         raise AssertionError(f"soak_swin playback: {records} records, "
                              f"matured {tr['matured']}, psnr {psnrs}")
-    gt_renders = pb_launches["tile_blend_forward"] - frames
+    gt_renders = pb_launches["tile_blend_forward"]
     want = dict(tile_blend_backward=0, multi_cumsum=0, multi_cummax=0,
-                render_forward=0)
-    if ({k: pb_launches[k] for k in want} != want or gt_renders < 0
+                render_forward=frames, encode_rgb8=frames)
+    if ({k: pb_launches[k] for k in want} != want
             or pb_launches["merge_expand"] + pb_launches["expand_scan"]
             != frames + gt_renders):
         raise AssertionError(f"soak_swin playback: launches {pb_launches}")
     name = "soak-swin-200k-1280x720"
     errs = check_owner_expansion(name, store, card_name)
     with torch.no_grad():
-        feat, meta, kw = blend_kwargs(store["ext"]["blend_forward"][0])
-        errs["tile_blend_forward"] = check_blend_forward(
-            name, tile_kernel.tile_blend_forward, feat, meta, kw,
-            tile_kernel._blend_plain(feat, meta, **kw))["fwd_max_abs_err"]
+        feat, meta, bg, rkw = render_kwargs(renders[0])
+        errs["render_forward"] = check_render(
+            tile_kernel.render_forward, feat, meta, bg, rkw,
+            tile_kernel.render_forward_plain(feat, meta, bg, **rkw))
     log("soak_swin", card=card_name, setting=name, **SOAK_SWIN,
         seconds=time.time() - t0, train_seconds=tr["wall"],
         windows=soak.window_stats, matured_per_tick=tr["matured"],
@@ -3809,8 +3811,8 @@ def main() -> int:
     sys.path.insert(0, ROOT)
     try:
         from gsplat_tpu_torch.raster import cuda_ext, scan_kernel
+        from gsplat_tpu_torch.raster import rasterize as rast
         from gsplat_tpu_torch.raster import tile_kernel
-        from gsplat_tpu_torch.viewer import serve
     except ImportError as e:
         print(f"chip_smoke: run it from a checkout of the repository ({e})",
               file=sys.stderr)
@@ -3850,7 +3852,7 @@ def main() -> int:
         for w in wrappers.values():
             w.launches = 0
         rec = []
-        with capture(serve, "tile_kernel", rec, attr="encode_rgb8"):
+        with capture(rast, "tile_kernel", rec, attr="encode_rgb8"):
             images[setting] = [fn(cam) for cam in cams]
         torch.cuda.synchronize()
         raw[setting] = [args[0] for args, _ in rec]

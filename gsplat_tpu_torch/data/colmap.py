@@ -1,8 +1,6 @@
 """COLMAP sparse-reconstruction parsers (binary and text), a copy of
-gsplat_tpu/data/colmap.py. The binary images and points readers take the
-port's native parser first (gsplat_tpu_torch/native/gsio.cpp, a host
-accelerator built at first use) and the numpy paths below when it is not
-available; both give the same arrays.
+gsplat_tpu/data/colmap.py without its native parser. A binary file cut
+short raises ValueError naming the file.
 
 Capability parity with the reference's scene/colmap_loader.py (cameras,
 images, points3D in .bin/.txt form), implemented independently against the
@@ -92,59 +90,50 @@ def read_cameras_binary(path: str) -> dict[int, ColmapCamera]:
     return cams
 
 
-def read_images_binary(path: str) -> dict[int, ColmapImage]:
-    # fast native path (gsplat_tpu_torch/native/gsio.cpp), numpy fallback
-    from gsplat_tpu_torch.native import gsio
-
-    with open(path, "rb") as fh:
-        buf = fh.read()
-    native = gsio.parse_images(buf)
-    if native is not None:
-        ids, qvec, tvec, cam_ids, names = native
-        return {int(i): ColmapImage(int(i), qvec[k].copy(), tvec[k].copy(),
-                                    int(cam_ids[k]), names[k])
-                for k, i in enumerate(ids)}
-    return read_images_binary_numpy(path)
-
-
-def read_images_binary_numpy(path: str) -> dict[int, ColmapImage]:
-    imgs = {}
+def _read_counted(path: str, record_min: int):
+    """(the file's bytes, its leading u64 record count, a check that the
+    bytes reach an offset). Raises ValueError naming the file when they
+    do not, or when the count's records cannot fit."""
     with open(path, "rb") as f:
-        (num,) = struct.unpack("<Q", f.read(8))
-        for _ in range(num):
-            iid = struct.unpack("<i", f.read(4))[0]
-            qvec = np.frombuffer(f.read(32), dtype="<f8").copy()
-            tvec = np.frombuffer(f.read(24), dtype="<f8").copy()
-            (cam_id,) = struct.unpack("<i", f.read(4))
-            name_bytes = bytearray()
-            while True:
-                c = f.read(1)
-                if c == b"\x00":
-                    break
-                name_bytes += c
-            (n_pts,) = struct.unpack("<Q", f.read(8))
-            f.seek(24 * n_pts, 1)  # skip 2D points (x f8, y f8, id i8)
-            imgs[iid] = ColmapImage(iid, qvec, tvec, cam_id,
-                                    name_bytes.decode("utf-8"))
+        data = f.read()
+
+    def need(end):
+        if end > len(data):
+            raise ValueError(f"{path}: cut short at byte {len(data)}")
+
+    need(8)
+    (num,) = struct.unpack_from("<Q", data, 0)
+    need(8 + record_min * num)
+    return data, num, need
+
+
+def read_images_binary(path: str) -> dict[int, ColmapImage]:
+    # record: id i4, qvec f8x4, tvec f8x3, camera id i4, NUL-ended name,
+    # n_points u8, points (x f8, y f8, id i8)
+    data, num, need = _read_counted(path, 73)
+    imgs = {}
+    off = 8
+    for _ in range(num):
+        need(off + 64)
+        iid = struct.unpack_from("<i", data, off)[0]
+        qvec = np.frombuffer(data, "<f8", 4, off + 4).copy()
+        tvec = np.frombuffer(data, "<f8", 3, off + 36).copy()
+        (cam_id,) = struct.unpack_from("<i", data, off + 60)
+        end = data.find(b"\x00", off + 64)
+        if end < 0:
+            raise ValueError(f"{path}: cut short inside an image name")
+        name = data[off + 64:end].decode("utf-8")
+        need(end + 9)
+        (n_pts,) = struct.unpack_from("<Q", data, end + 1)
+        off = end + 9 + 24 * n_pts
+        need(off)
+        imgs[iid] = ColmapImage(iid, qvec, tvec, cam_id, name)
     return imgs
 
 
 def read_points3d_binary(path: str):
     """Returns (xyz [N,3] f64, rgb [N,3] u8, errors [N] f64)."""
-    from gsplat_tpu_torch.native import gsio
-
-    with open(path, "rb") as f:
-        data = f.read()
-    native = gsio.parse_points3d(data)
-    if native is not None:
-        return native
-    return parse_points3d_numpy(data)
-
-
-def parse_points3d_numpy(data: bytes):
-    """The numpy parse of a points3D.bin's bytes (read_points3d_binary's
-    fallback)."""
-    (num,) = struct.unpack_from("<Q", data, 0)
+    data, num, need = _read_counted(path, 51)
     xyz = np.empty((num, 3), np.float64)
     rgb = np.empty((num, 3), np.uint8)
     err = np.empty((num,), np.float64)
@@ -153,11 +142,13 @@ def parse_points3d_numpy(data: bytes):
     # Track lengths vary, so walk records but slice with frombuffer (no
     # per-field struct calls).
     for i in range(num):
+        need(off + 51)
         xyz[i] = np.frombuffer(data, "<f8", 3, off + 8)
         rgb[i] = np.frombuffer(data, "u1", 3, off + 32)
         err[i] = np.frombuffer(data, "<f8", 1, off + 35)[0]
         (track_len,) = struct.unpack_from("<Q", data, off + 43)
         off += 51 + 8 * track_len
+        need(off)
     return xyz, rgb, err
 
 

@@ -46,12 +46,14 @@ from gsplat_tpu_torch.train.train_static import make_settings
 
 
 def save_png(path: str, img: np.ndarray) -> None:
-    """Write an [H, W, 3] float image in [0, 1] as an 8-bit PNG."""
+    """Write an [H, W, 3] image, uint8 or float in [0, 1], as an 8-bit
+    PNG."""
     from PIL import Image
 
     os.makedirs(os.path.dirname(path), exist_ok=True)
-    Image.fromarray((np.clip(img, 0, 1) * 255 + 0.5).astype(np.uint8)
-                    ).save(path)
+    if img.dtype != np.uint8:
+        img = (np.clip(img, 0, 1) * 255 + 0.5).astype(np.uint8)
+    Image.fromarray(img).save(path)
 
 
 def find_latest_iteration(model_path: str) -> int:

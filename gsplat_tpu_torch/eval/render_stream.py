@@ -3,8 +3,9 @@ gsplat_tpu/eval/render_stream.py).
 
 Loads the append-only matured-Gaussian stream that train_swin writes and,
 for each requested frame, renders every camera with the lifespan-active
-rows on the inference path (bf16 feature stream, 128x32 tiles), so
-playback runs the render kernel and an owner-expansion kernel.
+rows through ``raster.rasterize.render_frame`` (bf16 feature stream,
+128x32 tiles, uint8 bytes made on the device), so playback runs the
+render kernel, an owner-expansion kernel and the encode.
 
 A frame's work is set by its live rows, not by the stream's length. Every
 row lives at most L frames, L the stream's largest ``end - start``
@@ -12,7 +13,7 @@ row lives at most L frames, L the stream's largest ``end - start``
 the rows live at frame f are among those with ``end`` in (f, f + L].
 ``load_stream_state`` orders the rows by ``end_frame`` (a stable sort),
 which makes those rows one contiguous slice, and keeps each frame's slice
-bounds and live-row count as host integers; a frame rasterizes its slice
+bounds and live-row count as host integers; a frame renders its slice
 alone, masked by ``start <= f``. The activated columns (scales,
 unit quaternions, opacities, SH) are computed once, at load.
 
@@ -38,13 +39,11 @@ from gsplat_tpu_torch.core.camera import CameraParams
 from gsplat_tpu_torch.core.quaternion import normalize
 from gsplat_tpu_torch.data.scene import DynamicScene
 from gsplat_tpu_torch.eval.render import save_png
-from gsplat_tpu_torch.raster import tile_kernel
-from gsplat_tpu_torch.raster.rasterize import RasterizeSettings, rasterize
+from gsplat_tpu_torch.raster.rasterize import render_frame
 from gsplat_tpu_torch.utils.profiling import count, span
 from gsplat_tpu_torch.utils.stream import stream_load
-from gsplat_tpu_torch.viewer.serve import TILE_X, TILE_Y
 
-# the columns rasterize takes, in its argument order
+# the columns render_frame takes, in its argument order
 COLUMNS = ("xyz", "scales", "quats", "opacities", "shs")
 
 
@@ -106,41 +105,29 @@ def dup_budget(data: dict) -> int:
     return max(8 * widest, 1 << 16)
 
 
-def _rasterize_frame(data: dict, camera: CameraParams, frame: float, bg,
-                     settings: RasterizeSettings):
-    """rasterize of the frame's slice, its rows alive where
-    start <= frame."""
+def render_stream_frame(data: dict, camera: CameraParams, frame: float, bg,
+                        k_dup: int):
+    """One frame from ``load_stream_state``'s stream: the rows with
+    start <= frame < end, without rigid motion (the stream format carries
+    none, stream_utils.py:16-32, so the reference's playback drops it
+    too), through ``render_frame`` on the frame's slice alone -> uint8
+    [H, W, 3]."""
     with span("stream.select"):
         lo, hi, live = frame_rows(data, frame)
         count("stream.slice_rows", hi - lo)
         count("stream.live_rows", live)
         rows = [data[k][lo:hi] for k in COLUMNS]
         alive = data["start_frame"][lo:hi] <= frame
-    return rasterize(*rows, camera, data["sh_degree"], bg, settings,
-                     alive=alive)
-
-
-@torch.no_grad()
-def render_stream_frame(data: dict, camera, frame: float, bg, settings):
-    """Render one frame from ``load_stream_state``'s stream: the rows with
-    start <= frame < end, without rigid motion (the stream format carries
-    none, stream_utils.py:16-32, so the reference's playback drops it
-    too) -> [H, W, 3] float32 in [0, 1]."""
-    img = _rasterize_frame(data, camera, frame, bg, settings).image
-    if settings.inference:  # [3, H, W] bf16 -> [H, W, 3] float32
-        img = img.float().permute(1, 2, 0)
-    return torch.clamp(img, 0.0, 1.0)
+    return render_frame(*rows, camera, data["sh_degree"], bg, k_dup,
+                        alive=alive)[0]
 
 
 def make_stream_render_fn(stream: dict, k_dup: int, width: int,
                           height: int, device: str | torch.device = "cuda"):
     """The player's render for one resolution: camera, frame -> the frame
     a viewer receives, uint8 [H, W, 3] on ``device``
-    (``tile_kernel.encode_rgb8`` of the bf16 inference image, 128x32
-    tiles, as ``viewer/serve.make_render_fn``)."""
+    (``render_stream_frame`` over a black background)."""
     device = get_device(device)
-    settings = RasterizeSettings(k_dup=k_dup, inference=True,
-                                 tile_x=TILE_X, tile_y=TILE_Y)
     bg = torch.zeros(3, dtype=torch.float32, device=device)
 
     def render(camera: CameraParams, frame: float):
@@ -148,9 +135,7 @@ def make_stream_render_fn(stream: dict, k_dup: int, width: int,
             raise ValueError(f"camera is {camera.width}x{camera.height}, "
                              f"this render is {width}x{height}")
         with span("stream.render"):
-            out = _rasterize_frame(stream, camera, frame, bg, settings)
-            with span("raster.assemble"):
-                return tile_kernel.encode_rgb8(out.image)
+            return render_stream_frame(stream, camera, frame, bg, k_dup)
 
     return render
 
@@ -171,11 +156,8 @@ def main(argv=None):
 
     device = get_device(args.data_device)
     data = load_stream_state(args.model_path, device)
-    # playback is inference: bf16 stream, 128x32 tiles
     k_dup = args.dup_budget or dup_budget(data)
-    settings = RasterizeSettings(k_dup=-(-k_dup // 128) * 128,
-                                 inference=True, tile_x=TILE_X,
-                                 tile_y=TILE_Y)
+    k_dup = -(-k_dup // 128) * 128
     scene = DynamicScene(args.source_path, "", resolution=args.resolution,
                          max_frame=args.max_frame, min_frame=args.min_frame,
                          shuffle=False, device=device)
@@ -195,7 +177,7 @@ def main(argv=None):
                 for cam_obj in getter([f]):
                     camera, gt = cam_obj.load()
                     img = render_stream_frame(data, camera, float(f), bg,
-                                              settings)
+                                              k_dup)
                     name = cam_obj.image_name.replace("/", "_")
                     save_png(os.path.join(out_dir, f"{name}.png"),
                              img.cpu().numpy())

@@ -35,16 +35,25 @@ _I32 = torch.int32
 
 class Binning(NamedTuple):
     gid: torch.Tensor          # [K_slots] int32 depth-rank id per slot; P = pad
-    order: torch.Tensor        # [P] int32 depth rank -> original id
-    inv_order: torch.Tensor    # [P] int32 original id -> depth rank
-    tile_of_slot: torch.Tensor  # [K_slots] int32 tile id (clamped)
     chunk_meta: torch.Tensor   # [K_slots/chunk] int32 tile<<2|first<<1|last
     tile_len: torch.Tensor     # [T] int32 rect duplicates per tile
     num_dup: torch.Tensor      # [] int32 true duplicate count
+    order: torch.Tensor        # [P] int64 depth rank -> original id
+    counts: torch.Tensor       # [P] int32 rect duplicates, by depth rank
+    fits: torch.Tensor         # [P] bool by depth rank: the whole rect fits
+                               # the budget
+    ref_rect: tuple            # 4 x [P] int32 (min_x, min_y, max_x, max_y):
+                               # the reference 3-sigma rect (tile_rect)
+    feat_table: Optional[torch.Tensor] = None  # [P, F] in depth-rank order
+
+
+class TrainBinning(NamedTuple):
+    """What the training path reads beyond the frame's slot lists."""
+
+    inv_order: torch.Tensor    # [P] int64 original id -> depth rank
     radius: torch.Tensor       # [P] int32, empty-rect Gaussians zeroed
     used: torch.Tensor         # [P] bool, >= 1 surviving duplicate
     seg_bounds: torch.Tensor   # [P+1] int32 segment starts in slot order
-    feat_table: Optional[torch.Tensor] = None  # [P, F] in depth-rank order
 
 
 def num_slots(k_dup: int, num_tiles: int, chunk: int) -> int:
@@ -127,22 +136,14 @@ def bin_gaussians(proc: Preprocessed, *, tile_x: int, tile_y: int,
     # ---- depth pre-sort: all later work happens in depth-rank space ----
     depth_key = torch.where(active, proc.depth,
                             torch.full_like(proc.depth, float("inf")))
-    order64 = torch.sort(depth_key, stable=True).indices
-    order = order64.to(_I32)
-    iota_p = torch.arange(p, dtype=_I32, device=dev)
-    inv_order = torch.empty_like(order)
-    inv_order[order64] = iota_p
-    rect_all_d = rect_all[order64]
-    feat_table_d = None if feat_table is None else feat_table[order64]
+    order = torch.sort(depth_key, stable=True).indices
+    rect_all_d = rect_all[order]
+    feat_table_d = None if feat_table is None else feat_table[order]
     minx_o = rect_all_d >> (yb + xb + yb)
     miny_o = (rect_all_d >> (xb + yb)) & ((1 << yb) - 1)
     w_o = (rect_all_d >> yb) & ((1 << xb) - 1)
     h_o = rect_all_d & ((1 << yb) - 1)
     counts = w_o * h_o
-    # radii keep the reference 3-sigma semantics (forward.cu:251)
-    ref_rect = (rmax_x - rmin_x) * (rmax_y - rmin_y)
-    radius = torch.where(proc.visible & (ref_rect > 0), proc.radius,
-                         torch.zeros_like(proc.radius))
 
     offsets = torch.cat([torch.zeros(1, dtype=_I32, device=dev),
                          torch.cumsum(counts, 0, dtype=_I32)])
@@ -218,7 +219,6 @@ def bin_gaussians(proc: Preprocessed, *, tile_x: int, tile_y: int,
     key_sorted = (packed >> rank_bits).to(_I32)
     gid_sorted = (packed & ((1 << rank_bits) - 1)).to(_I32)
 
-    tile_of_slot = torch.clamp(key_sorted, max=num_tiles - 1)
     chunk_tile = key_sorted[::chunk]
     change = (chunk_tile[1:] != chunk_tile[:-1]).to(_I32)
     one = torch.ones(1, dtype=_I32, device=dev)
@@ -226,13 +226,28 @@ def bin_gaussians(proc: Preprocessed, *, tile_x: int, tile_y: int,
     chunk_last = torch.cat([change, one])
     chunk_meta = (chunk_tile << 2) | (chunk_first << 1) | chunk_last
 
-    used = fits[inv_order.long()]
+    return Binning(gid=gid_sorted, chunk_meta=chunk_meta, tile_len=len_t,
+                   num_dup=num_dup, order=order, counts=counts, fits=fits,
+                   ref_rect=(rmin_x, rmin_y, rmax_x, rmax_y),
+                   feat_table=feat_table_d)
+
+
+def train_binning(proc: Preprocessed, binn: Binning) -> TrainBinning:
+    """The training path's per-Gaussian bookkeeping from ``bin_gaussians``'
+    depth order, rects and fits."""
+    p = binn.order.shape[0]
+    dev = binn.order.device
+    inv_order = torch.empty_like(binn.order)
+    inv_order[binn.order] = torch.arange(p, device=dev)
+    # radii keep the reference 3-sigma semantics (forward.cu:251)
+    rmin_x, rmin_y, rmax_x, rmax_y = binn.ref_rect
+    ref_area = (rmax_x - rmin_x) * (rmax_y - rmin_y)
+    radius = torch.where(proc.visible & (ref_area > 0), proc.radius,
+                         torch.zeros_like(proc.radius))
     seg_bounds = torch.cat([
         torch.zeros(1, dtype=_I32, device=dev),
-        torch.cumsum(torch.where(fits, counts, torch.zeros_like(counts)), 0,
+        torch.cumsum(torch.where(binn.fits, binn.counts,
+                                 torch.zeros_like(binn.counts)), 0,
                      dtype=_I32)])
-
-    return Binning(gid=gid_sorted, order=order, inv_order=inv_order,
-                   tile_of_slot=tile_of_slot, chunk_meta=chunk_meta,
-                   tile_len=len_t, num_dup=num_dup, radius=radius, used=used,
-                   seg_bounds=seg_bounds, feat_table=feat_table_d)
+    return TrainBinning(inv_order=inv_order, radius=radius,
+                        used=binn.fits[inv_order], seg_bounds=seg_bounds)

@@ -2,21 +2,24 @@
 
 preprocess -> bin_gaussians (depth sort, owner expansion, chunk padding)
 -> one row gather of the depth-ordered feature table per slot
-(``_slot_features``) -> a tile blend -> tile assembly. Two paths:
+(``_slot_features``) -> a tile blend -> tile assembly. Two entries:
 
-- ``inference=True``: a bf16 feature stream, the inference render with the
-  background composited in-kernel, a [3, H, W] bf16 image; not
-  differentiable.
-- ``inference=False`` (training): a float32 stream, ``tile_kernel.tile_blend``
+- ``render_frame``: the frame a viewer receives (the live-viewer server
+  and the stream player). Forward only: a bf16 feature stream, the
+  inference render with the background composited in-kernel, 128x32
+  tiles, the uint8 [H, W, 3] bytes made on the device. ``render_image``
+  is the same frame before its encode, a [3, H, W] bf16 image.
+- ``rasterize`` (training): a float32 stream, ``tile_kernel.tile_blend``
   (blend forward and backward kernels), the background added outside, an
   [H, W, 3] (``layout="hwc"``) or [3, H, W] (``"chw"``) float32 image, the
-  final transmittance and the pixel-granular ``is_used``. Gradients reach
-  means3d, scales, quats, opacities and shs (or the precomputed colors and
-  covariances) through autograd of preprocess; the per-Gaussian reduction
-  of the per-slot gradients is the backward of ``_slot_features``.
+  final transmittance, radii and the pixel-granular ``is_used``. Gradients
+  reach means3d, scales, quats, opacities and shs (or the precomputed
+  colors and covariances) through autograd of preprocess; the per-Gaussian
+  reduction of the per-slot gradients is the backward of
+  ``_slot_features``.
 
 Known reference behaviour, reproduced on purpose: ``_slot_features`` casts
-the whole feature table to bf16 before the gather on the inference path,
+the whole feature table to bf16 before the gather on the frame's path,
 including the GLOBAL pixel means x and y, so x in [1024, 2048) lands on a
 grid of 8 px (gsplat_tpu/raster/rasterize.py:246-248).
 """
@@ -34,6 +37,11 @@ from gsplat_tpu_torch.raster import project as project_lib
 from gsplat_tpu_torch.raster import scan_kernel, tile_kernel
 from gsplat_tpu_torch.utils.profiling import span
 
+# the served frame's tiles and chunk; its slot count is aligned to
+# SUPER_CHUNKS chunks, as the training path's default
+TILE_X, TILE_Y, CHUNK = 128, 32, 128
+SUPER_CHUNKS = 8
+
 
 @dataclasses.dataclass(frozen=True)
 class RasterizeSettings:
@@ -46,22 +54,19 @@ class RasterizeSettings:
     k_dup: int
     tile_x: int = 32
     tile_y: int = 16
-    chunk: int = 128
-    super_chunks: int = 8
-    inference: bool = False
+    chunk: int = CHUNK
+    super_chunks: int = SUPER_CHUNKS
     layout: str = "hwc"
 
 
 class RasterizeOutput(NamedTuple):
-    image: torch.Tensor      # training: [H, W, 3] ("hwc") or [3, H, W]
-                             # ("chw") f32 over the background; inference:
-                             # [3, H, W] bf16
+    image: torch.Tensor      # [H, W, 3] ("hwc") or [3, H, W] ("chw") f32
+                             # over the background
     radii: torch.Tensor      # [P] int32 (0 => culled)
     is_used: torch.Tensor    # [P] bool: composited into >= 1 pixel
-                             # (forward.cu:364); tile-granular (used_tile)
-                             # on the inference path
+                             # (forward.cu:364)
     num_dup: torch.Tensor    # [] int32 true duplicate count (<= k_dup)
-    final_t: torch.Tensor    # [H, W] final T (zeros on the inference path)
+    final_t: torch.Tensor    # [H, W] final T
     used_tile: torch.Tensor  # [P] bool, >= 1 surviving duplicate
 
 
@@ -168,12 +173,61 @@ def _slot_features(table, gid, dtype=torch.float32,
     return _GatherRowsT.apply(table, gid, seg_bounds)
 
 
+@torch.no_grad()
+def render_image(means3d, scales, quats, opacities, shs,
+                 camera: CameraParams, sh_degree: int, bg, k_dup: int, *,
+                 alive=None, scale_modifier: float = 1.0,
+                 tile_x: int = TILE_X, tile_y: int = TILE_Y):
+    """The served frame before its encode: ([3, H, W] bf16 image over
+    ``bg``, [] int32 num_dup). ``k_dup`` is the Gaussian x tile duplicate
+    budget; overflow is reported through ``num_dup``."""
+    width, height = camera.width, camera.height
+    grid_x = -(-width // tile_x)
+    grid_y = -(-height // tile_y)
+    bg = torch.as_tensor(bg, dtype=torch.float32, device=means3d.device)
+    with span("raster.preprocess"):
+        proc = project_lib.preprocess(
+            means3d, scales, quats, opacities, shs, camera, sh_degree,
+            scale_modifier=scale_modifier, alive=alive)
+    with span("raster.binning"):
+        binn = binning_lib.bin_gaussians(
+            proc, tile_x=tile_x, tile_y=tile_y, grid_x=grid_x,
+            grid_y=grid_y, k_dup=k_dup, chunk=CHUNK, align=SUPER_CHUNKS,
+            feat_table=_feat_columns(proc))
+    with span("raster.gather"):
+        feat = _slot_features(binn.feat_table, binn.gid,
+                              dtype=torch.bfloat16)
+    with span("raster.render"):
+        c_img = tile_kernel.render_forward(
+            feat, binn.chunk_meta, bg, grid_x * grid_y, tile_x * tile_y,
+            tile_x, tile_y, grid_x, CHUNK)
+    with span("raster.assemble"):
+        image = assemble_tiles(c_img, grid_x, grid_y, tile_x, tile_y, width,
+                               height)
+    return image, binn.num_dup
+
+
+def render_frame(means3d, scales, quats, opacities, shs,
+                 camera: CameraParams, sh_degree: int, bg, k_dup: int, *,
+                 alive=None, scale_modifier: float = 1.0,
+                 tile_x: int = TILE_X, tile_y: int = TILE_Y):
+    """The frame a viewer receives: (uint8 [H, W, 3] on the rows' device,
+    the SIBR viewer's layout, ``tile_kernel.encode_rgb8`` of
+    ``render_image``; [] int32 num_dup)."""
+    image, num_dup = render_image(
+        means3d, scales, quats, opacities, shs, camera, sh_degree, bg, k_dup,
+        alive=alive, scale_modifier=scale_modifier, tile_x=tile_x,
+        tile_y=tile_y)
+    with span("raster.encode"):
+        return tile_kernel.encode_rgb8(image), num_dup
+
+
 def rasterize(means3d, scales, quats, opacities, shs, camera: CameraParams,
               sh_degree: int, bg, settings: RasterizeSettings, *,
               colors_precomp=None, cov3d_precomp=None,
               scale_modifier: float = 1.0, alive=None,
               band_h: int | None = None, band_y0=0.0) -> RasterizeOutput:
-    """Render Gaussians; differentiable unless ``settings.inference``.
+    """Render Gaussians on the training path; differentiable.
 
     ``band_h`` / ``band_y0`` render only the horizontal band of ``band_h``
     rows from pixel row ``band_y0`` (parallel/tileshard.py gives each rank
@@ -208,28 +262,12 @@ def rasterize(means3d, scales, quats, opacities, shs, camera: CameraParams,
             proc_ng, tile_x=s.tile_x, tile_y=s.tile_y, grid_x=grid_x,
             grid_y=grid_y, k_dup=s.k_dup, chunk=s.chunk,
             align=s.super_chunks, feat_table=_feat_columns(proc))
+        tb = binning_lib.train_binning(proc_ng, binn)
     bg = torch.as_tensor(bg, dtype=torch.float32, device=means3d.device)
-
-    if s.inference:
-        with span("raster.gather"):
-            feat = _slot_features(binn.feat_table, binn.gid,
-                                  dtype=torch.bfloat16)
-        with span("raster.render"):
-            c_img = tile_kernel.render_forward(
-                feat, binn.chunk_meta, bg, num_tiles, n_pix, s.tile_x,
-                s.tile_y, grid_x, s.chunk)
-        with span("raster.assemble"):
-            image = assemble_tiles(c_img, grid_x, grid_y, s.tile_x,
-                                   s.tile_y, width, height)
-            final_t = torch.zeros(height, width, dtype=torch.float32,
-                                  device=means3d.device)
-        return RasterizeOutput(image=image, radii=binn.radius,
-                               is_used=binn.used, num_dup=binn.num_dup,
-                               final_t=final_t, used_tile=binn.used)
 
     with span("raster.gather"):
         feat = _slot_features(binn.feat_table, binn.gid,
-                              seg_bounds=binn.seg_bounds)
+                              seg_bounds=tb.seg_bounds)
     with span("raster.render"):
         c_img, t_img, used_slot = tile_kernel.tile_blend(
             feat, binn.chunk_meta, num_tiles, n_pix, s.tile_x, s.tile_y,
@@ -248,7 +286,7 @@ def rasterize(means3d, scales, quats, opacities, shs, camera: CameraParams,
             (torch.where(hit, binn.gid.long(),
                          torch.full_like(binn.gid, p + 1,
                                          dtype=torch.long)),), hit)
-        is_used = used_rank[binn.inv_order.long()]
+        is_used = used_rank[tb.inv_order]
 
         color = assemble_tiles(c_img, grid_x, grid_y, s.tile_x, s.tile_y,
                                width, height)
@@ -260,9 +298,9 @@ def rasterize(means3d, scales, quats, opacities, shs, camera: CameraParams,
         elif s.layout != "chw":
             raise ValueError(
                 f"layout must be 'hwc' or 'chw', got {s.layout!r}")
-    return RasterizeOutput(image=image, radii=binn.radius, is_used=is_used,
+    return RasterizeOutput(image=image, radii=tb.radius, is_used=is_used,
                            num_dup=binn.num_dup, final_t=final_t,
-                           used_tile=binn.used)
+                           used_tile=tb.used)
 
 
 def assemble_tiles(img_t, grid_x: int, grid_y: int, tile_x: int,

@@ -1,9 +1,9 @@
 """High-level render entries (port of gsplat_tpu/renderer.py).
 
 ``render`` draws a GaussianState, ``deformable_render`` a SwinState at a
-frame, through the rasterizer with the settings the caller passes (the
-inference path, or the training path when ``settings.inference`` is
-False); both return the same bundle as their JAX counterparts.
+frame, through the training rasterizer with the settings the caller
+passes; both return the same bundle as their JAX counterparts. The served
+frame is ``raster.rasterize.render_frame``.
 """
 
 from __future__ import annotations

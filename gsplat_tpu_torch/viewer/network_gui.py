@@ -129,15 +129,16 @@ def _pinned_frame(shape, device) -> torch.Tensor:
 
 
 def image_to_bytes(img) -> bytes:
-    """The byte layout the SIBR viewer expects (uint8 RGB, C-order) of an
-    [H, W, 3] frame, numpy or tensor: uint8 (as ``serve.make_render_fn``
-    makes it on the device), or float in [0, 1] (clipped, scaled and cast
-    on the host).
+    """The byte layout the SIBR viewer expects (uint8 RGB, C-order) of a
+    uint8 [H, W, 3] frame, numpy or tensor (``render_frame`` makes it on
+    the device).
 
-    A uint8 CUDA tensor is copied into a page-locked buffer. While tracing
-    is on (``utils/profiling``), a CUDA tensor is waited for before its
-    copy, so that the copy's span times the copy alone: the copy would
-    wait for the same work."""
+    A CUDA tensor is copied into a page-locked buffer. While tracing is on
+    (``utils/profiling``), a CUDA tensor is waited for before its copy, so
+    that the copy's span times the copy alone: the copy would wait for the
+    same work."""
+    if img.dtype not in (torch.uint8, np.uint8):
+        raise ValueError(f"the frame must be uint8, got {img.dtype}")
     with profiling.span("serve.bytes"):
         if isinstance(img, torch.Tensor):
             img = img.detach()
@@ -145,15 +146,10 @@ def image_to_bytes(img) -> bytes:
                 if img.is_cuda:
                     with profiling.span("serve.wait"):
                         torch.cuda.current_stream(img.device).synchronize()
-                profiling.count("serve.d2h_bytes",
-                                img.numel() * img.element_size())
+                profiling.count("serve.d2h_bytes", img.numel())
             with profiling.span("serve.copy"):
-                if img.dtype == torch.uint8 and img.is_cuda:
+                if img.is_cuda:
                     img = _pinned_frame(img.shape, img.device).copy_(img)
                 img = img.cpu().numpy()
         with profiling.span("serve.encode"):
-            arr = np.asarray(img)
-            if arr.dtype == np.uint8:
-                return arr.tobytes()
-            return (np.clip(arr, 0, 1) * 255 + 0.5).astype(
-                np.uint8).tobytes()
+            return np.asarray(img).tobytes()

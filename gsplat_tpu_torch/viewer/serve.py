@@ -6,10 +6,10 @@ Usage:
          [--ip 127.0.0.1] [--port 6009] [--cap_max N] [--sh_degree D]
          [--dup_budget K]
 
-Renders on the GPU through the inference rasterizer: bf16 feature stream,
-128x32 tiles, background composited in the kernel, duplicate budget
-``--dup_budget`` or 8 x cap_max; the reply's RGB bytes are made on the
-device and copied to the host through a page-locked buffer. ``serve``
+Renders on the GPU through ``raster.rasterize.render_frame`` (bf16 feature
+stream, 128x32 tiles, background composited in the kernel, the reply's
+RGB bytes made on the device), duplicate budget ``--dup_budget`` or 8 x
+cap_max; the bytes reach the host through a page-locked buffer. ``serve``
 and ``make_render_fn`` take a ``device``; on the CPU they run the
 kernels' plain PyTorch versions.
 """
@@ -27,12 +27,9 @@ from gsplat_tpu_torch import get_device
 from gsplat_tpu_torch.core.camera import CameraParams
 from gsplat_tpu_torch.model import gaussians
 from gsplat_tpu_torch.model.gaussians import GaussianState
-from gsplat_tpu_torch.raster import tile_kernel
-from gsplat_tpu_torch.raster.rasterize import RasterizeSettings, rasterize
+from gsplat_tpu_torch.raster.rasterize import render_frame
 from gsplat_tpu_torch.utils.profiling import span
 from gsplat_tpu_torch.viewer import network_gui
-
-TILE_X, TILE_Y = 128, 32
 
 
 def find_latest_iteration(model_path: str) -> int:
@@ -46,16 +43,11 @@ def make_render_fn(state: GaussianState, k_dup: int, width: int,
                    height: int, device: str | torch.device = "cuda"):
     """The server's render for one resolution: camera, scaling modifier ->
     the frame the viewer receives, uint8 [H, W, 3] on ``device``
-    (``tile_kernel.encode_rgb8`` of the bf16 image)."""
+    (``render_frame``)."""
     device = get_device(device)
-    settings = RasterizeSettings(k_dup=k_dup, inference=True,
-                                 tile_x=TILE_X, tile_y=TILE_Y)
     bg = torch.zeros(3, dtype=torch.float32, device=device)
-    means = state.xyz
-    scales = state.get_scaling()
-    quats = state.get_rotation()
-    opac = state.get_opacity()[:, 0]
-    shs = state.get_features()
+    rows = (state.xyz, state.get_scaling(), state.get_rotation(),
+            state.get_opacity()[:, 0], state.get_features())
     alive = state.alive_mask
 
     def render(camera: CameraParams, scaling_modifier: float = 1.0):
@@ -63,11 +55,9 @@ def make_render_fn(state: GaussianState, k_dup: int, width: int,
             raise ValueError(f"camera is {camera.width}x{camera.height}, "
                              f"this render is {width}x{height}")
         with span("serve.render"):
-            out = rasterize(means, scales, quats, opac, shs, camera,
-                            state.max_sh_degree, bg, settings,
-                            scale_modifier=scaling_modifier, alive=alive)
-            with span("raster.assemble"):
-                return tile_kernel.encode_rgb8(out.image)
+            return render_frame(*rows, camera, state.max_sh_degree, bg,
+                                k_dup, alive=alive,
+                                scale_modifier=scaling_modifier)[0]
 
     return render
 

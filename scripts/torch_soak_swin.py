@@ -252,19 +252,19 @@ def train(soak, out) -> dict:
 
 
 def playback(soak, out) -> tuple:
-    """soak_swin.py:209-224: the dumped stream rendered from camera 0
-    every frames // 8 frames at the final budget against the GT; returns
-    ([(frame, PSNR dB)], the stream's record count)."""
+    """soak_swin.py:209-224: the dumped stream played (the stream
+    player's uint8 frame) from camera 0 every frames // 8 frames at the
+    final budget against the GT; returns ([(frame, PSNR dB)], the
+    stream's record count)."""
     from gsplat_tpu_torch.eval.render_stream import (load_stream_state,
                                                      render_stream_frame)
 
     su, frames = soak.su, soak.args.frames
     data = load_stream_state(out, device=su["device"])
-    pb_settings = dataclasses.replace(soak.box.settings, layout="hwc")
     psnrs = []
     for f in range(0, frames, max(frames // 8, 1)):
         img = render_stream_frame(data, su["cams"][0], float(f), su["bg"],
-                                  pb_settings).detach().cpu().numpy()
+                                  soak.box.settings.k_dup).cpu().numpy() / 255
         gt_hwc = su["gt_at"](f, 0).permute(1, 2, 0).cpu().numpy()
         mse = np.mean((np.clip(img, 0, 1) - np.clip(gt_hwc, 0, 1)) ** 2)
         psnrs.append((f, float(-10 * np.log10(mse + 1e-12))))

@@ -4,8 +4,9 @@
   CPU tensor runs) are bit-equal to the JAX Pallas kernels in interpret
   mode on live slots, over the cases of tests/test_raster.py plus
   multi-block (K > 4096) cases.
-- ``bin_gaussians`` fed the SAME ``Preprocessed`` (JAX's, as numpy) is
-  bit-equal to JAX in every integer output, on both expansion branches.
+- ``bin_gaussians`` fed the SAME ``Preprocessed`` (JAX's, as numpy), with
+  ``train_binning`` after it, is bit-equal to JAX in every integer output
+  both compute, on both expansion branches.
 
 The CUDA kernels are held against these plain versions in
 tests/test_torch_kernels.py.
@@ -98,16 +99,18 @@ def test_bin_gaussians_matches_jax(case):
     tp = to_torch_proc(jp)
     tb = tbinning.bin_gaussians(tp, feat_table=trasterize._feat_columns(tp),
                                 **kw)
+    tt = tbinning.train_binning(tp, tb)
     num_dup = int(jb.num_dup)
     assert ("merge" in case) == (2 * k_dup < 7 * CAP)
     assert ("overflow" in case) == (num_dup > k_dup)
     assert num_dup > 0
-    for name in ("gid", "chunk_meta", "tile_len", "num_dup", "radius",
-                 "used", "seg_bounds", "tile_of_slot"):
-        np.testing.assert_array_equal(getattr(tb, name).numpy(),
-                                      np.asarray(getattr(jb, name)),
-                                      err_msg=name)
-    n_fit = int(tb.used.sum())
+    for got, names in ((tb, ("gid", "chunk_meta", "tile_len", "num_dup")),
+                       (tt, ("radius", "used", "seg_bounds"))):
+        for name in names:
+            np.testing.assert_array_equal(getattr(got, name).numpy(),
+                                          np.asarray(getattr(jb, name)),
+                                          err_msg=name)
+    n_fit = int(tt.used.sum())
     assert n_fit > 0
     np.testing.assert_array_equal(tb.order.numpy()[:n_fit],
                                   np.asarray(jb.order)[:n_fit])

@@ -439,7 +439,6 @@ def test_eval_modules_import_with_jax_blocked():
             "import gsplat_tpu_torch.eval.full_eval\n"
             "import gsplat_tpu_torch.data.readers\n"
             "import gsplat_tpu_torch.data.convert\n"
-            "import gsplat_tpu_torch.native.gsio\n"
             "import gsplat_tpu_torch.renderer\n")
     res = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
                          capture_output=True, text=True, timeout=300)

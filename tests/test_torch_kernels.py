@@ -6,7 +6,7 @@ PyTorch is installed (the GPU host):
 - on the CPU, each plain PyTorch version is held against a numpy oracle
   written as a loop from the kernel's definition (exact for the integer
   scans, float32 tolerance for the render), and the served frame's encode
-  against the host's numpy encode (bit for bit);
+  against numpy's float32 encode (bit for bit);
 - ``gpu`` tests hold each CUDA kernel against its plain version on the same
   inputs: the scans and the encode bit-equal, images within two bf16 ULPs.
   They skip on a host without an NVIDIA GPU. Run them there with
@@ -22,7 +22,6 @@ import torch
 from hypothesis import given, settings
 from hypothesis import strategies as st
 
-from gsplat_tpu_torch import renderer as trenderer
 from gsplat_tpu_torch.core import camera as tcamera
 from gsplat_tpu_torch.model import gaussians as tgauss
 from gsplat_tpu_torch.model import mcmc as tmcmc
@@ -116,16 +115,20 @@ def merge_case(p_act, p_total, seed=0):
     return offsets[:p_total], pack, int(offsets[-1])
 
 
-def torch_scene(tile_x=16, tile_y=16, width=80, height=48, cap=400,
-                k_dup=1536, device="cpu"):
-    """A 300-Gaussian state, camera and inference settings on ``device``."""
+def torch_scene(width=80, height=48, cap=400, device="cpu"):
+    """A 300-Gaussian state and a camera on ``device``."""
     par = make_params(cap=cap, seed=11)
     state = tgauss.state_from_numpy(par, 300, 1, device)
     cam = tcamera.make_camera(np.eye(3), np.zeros(3), 0.9, 0.7, width, height,
                               device=device)
-    settings = trasterize.RasterizeSettings(k_dup=k_dup, tile_x=tile_x,
-                                            tile_y=tile_y, inference=True)
-    return state, cam, settings
+    return state, cam
+
+
+def numpy_encode(img):
+    """numpy's float32 encode of a bf16 [3, H, W] image: the uint8 [H, W,
+    3] bytes of clip(x, 0, 1) * 255 + 0.5."""
+    x = img.float().permute(1, 2, 0).cpu().numpy()
+    return (np.clip(x, 0, 1) * 255 + 0.5).astype(np.uint8).tobytes()
 
 
 # ---------------------------------------------------------------- CPU ----
@@ -910,17 +913,14 @@ def all_bf16_frame(h=97, w=115, seed=0):
 
 
 def test_encode_rgb8_plain_matches_numpy_encode():
-    """The plain served-frame encode gives, bit for bit, the bytes of the
-    host's numpy encode of the float32 clamp (the server's bytes before
-    the encode moved to the device), over every bf16 value of [-0.25,
-    1.25]; every level 0-255 occurs."""
+    """The plain served-frame encode gives, bit for bit, numpy's float32
+    encode (the server's bytes before the encode moved to the device),
+    over every bf16 value of [-0.25, 1.25]; every level 0-255 occurs."""
     img = all_bf16_frame()
     got = ttile.encode_rgb8(img)
     assert got.dtype == torch.uint8 and got.shape == (97, 115, 3)
     assert got.is_contiguous()
-    want = network_gui.image_to_bytes(
-        torch.clamp(img.float().permute(1, 2, 0), 0.0, 1.0))
-    assert got.numpy().tobytes() == want
+    assert got.numpy().tobytes() == numpy_encode(img)
     assert torch.equal(ttile.encode_rgb8_plain(img), got)
     assert torch.unique(got).numel() == 256
 
@@ -1100,17 +1100,17 @@ def test_render_cuda_matches_cpu_port(cuda, tiles, k_dup, cap):
     """The whole slice on the card (both expansion branches and the render
     kernel) against the port on the CPU."""
     width = 256 if tiles[0] == 128 else 80
-    kw = dict(tile_x=tiles[0], tile_y=tiles[1], width=width, height=64,
-              cap=cap, k_dup=k_dup)
-    state, cam, settings = torch_scene(**kw)
-    want = trenderer.render(cam, state, BG, settings)
-    g_state, g_cam, _ = torch_scene(**kw, device=cuda)
-    got = trenderer.render(g_cam, g_state, BG, settings)
+    out = []
+    for dev in ("cpu", cuda):
+        s, c = torch_scene(width=width, height=64, cap=cap, device=dev)
+        out.append(trasterize.render_image(
+            s.xyz, s.get_scaling(), s.get_rotation(), s.get_opacity()[:, 0],
+            s.get_features(), c, 1, BG, k_dup, alive=s.alive_mask,
+            tile_x=tiles[0], tile_y=tiles[1]))
+    (want, want_dup), (got, got_dup) = out
     torch.cuda.synchronize()
-    assert int(got["num_dup"]) == int(want["num_dup"])
-    assert torch.equal(got["radii"].cpu(), want["radii"])
-    assert within_bf16_ulps(got["render"].float().cpu(),
-                            want["render"].float())
+    assert int(got_dup) == int(want_dup)
+    assert within_bf16_ulps(got.float().cpu(), want.float())
 
 
 @pytest.mark.gpu
@@ -1215,7 +1215,7 @@ def test_training_rasterize_cuda_matches_cpu_port(cuda):
     reduction) against the port on the CPU: image, T, is_used, grads."""
     outs = []
     for dev in ("cpu", cuda):
-        state, cam, settings = torch_scene(device=dev)
+        state, cam = torch_scene(device=dev)
         settings = trasterize.RasterizeSettings(k_dup=1536, tile_x=16,
                                                 tile_y=16)
         params = {k: v.detach().clone().requires_grad_(True)
@@ -1232,6 +1232,7 @@ def test_training_rasterize_cuda_matches_cpu_port(cuda):
     (co, cg), (go, gg) = outs
     torch.cuda.synchronize()
     assert torch.equal(go.is_used.cpu(), co.is_used)
+    assert torch.equal(go.radii.cpu(), co.radii)
     assert float((go.image.detach().cpu() - co.image.detach()).abs().max()
                  ) <= 5e-5
     assert float((go.final_t.detach().cpu() - co.final_t.detach()).abs(
@@ -1384,7 +1385,8 @@ def test_encode_rgb8_cuda_matches_plain(cuda, h, w, how):
 @pytest.mark.gpu
 def test_uint8_frame_copies_through_a_reused_pinned_buffer(cuda):
     """A uint8 frame on the card: its bytes through one page-locked buffer
-    a shape, reused from call to call; float frames keep the host encode."""
+    a shape, reused from call to call; the card's encode gives numpy's
+    bytes; a float frame is refused."""
     frames = [torch.randint(0, 256, (64, 96, 3), dtype=torch.uint8)
               for _ in range(3)]
     for f in frames:
@@ -1393,5 +1395,6 @@ def test_uint8_frame_copies_through_a_reused_pinned_buffer(cuda):
     assert buf.is_pinned() and torch.equal(buf, frames[-1])
     img = all_bf16_frame().to(cuda)
     assert network_gui.image_to_bytes(ttile.encode_rgb8(img)) == \
-        network_gui.image_to_bytes(
-            torch.clamp(img.float().permute(1, 2, 0), 0.0, 1.0))
+        numpy_encode(img)
+    with pytest.raises(ValueError, match="uint8"):
+        network_gui.image_to_bytes(img.float().permute(1, 2, 0))

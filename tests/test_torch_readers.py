@@ -1,5 +1,5 @@
-"""gsplat_tpu_torch's COLMAP and Google Immersive readers, its native
-parser and its convert wrapper, against the JAX package on the CPU:
+"""gsplat_tpu_torch's COLMAP and Google Immersive readers and its convert
+wrapper, against the JAX package on the CPU:
 
 - ``read_colmap_scene`` and ``Scene`` on tests/test_data.py's synthetic
   COLMAP scene (binary and text models, sfm and random init, nine images
@@ -8,9 +8,10 @@ parser and its convert wrapper, against the JAX package on the CPU:
   images as JAX's;
 - ``read_google_immersive_scene`` on a synthetic cam.json (sfm.bin and
   random init), against JAX's;
-- the port's gsio (built at first use into build/gsio/) against the numpy
-  parsers, bit-equal, on records with tracks and 2D points, and the numpy
-  fallback equal to it when the library is unavailable;
+- the binary images and points readers against JAX's, bit-equal, on
+  records with tracks and 2D points; a file cut inside its count, an
+  image name, an image's 2D points or a point's record raises ValueError
+  naming the file;
 - ``data.convert`` refusing to run without the ``colmap`` binary.
 """
 
@@ -30,7 +31,6 @@ from gsplat_tpu_torch.data import colmap as tcolmap
 from gsplat_tpu_torch.data import convert as tconvert
 from gsplat_tpu_torch.data import readers as treaders
 from gsplat_tpu_torch.data.scene import Scene as TScene
-from gsplat_tpu_torch.native import gsio
 
 
 def _write_png(path, h=12, w=16, seed=0):
@@ -251,49 +251,54 @@ def _images_bytes(rng, n):
     return b"".join(out)
 
 
-def test_gsio_matches_numpy_parsers(tmp_path, monkeypatch):
+def test_binary_readers_match_jax(tmp_path):
     rng = np.random.default_rng(3)
     pts, ims = tmp_path / "points3D.bin", tmp_path / "images.bin"
     pts.write_bytes(_points3d_bytes(rng, 40))
     ims.write_bytes(_images_bytes(rng, 13))
-    assert gsio.get_lib() is not None  # g++ and make are on this host
-    assert os.path.dirname(gsio._LIB_PATH).endswith(os.path.join("build",
-                                                                 "gsio"))
-    native = gsio.parse_points3d(pts.read_bytes())
-    numpy_ = tcolmap.parse_points3d_numpy(pts.read_bytes())
-    for a, b in zip(native, numpy_):
+    got = tcolmap.read_points3d_binary(str(pts))
+    want = jcolmap.read_points3d_binary(str(pts))
+    assert got[0].shape == (40, 3)
+    for a, b in zip(got, want):
         assert a.dtype == b.dtype
         np.testing.assert_array_equal(a, b)
-    ids, qvec, tvec, cam_ids, names = gsio.parse_images(ims.read_bytes())
-    want = tcolmap.read_images_binary_numpy(str(ims))
-    assert list(want) == [int(i) for i in ids]
-    for k, im in enumerate(want.values()):
-        np.testing.assert_array_equal(qvec[k], im.qvec)
-        np.testing.assert_array_equal(tvec[k], im.tvec)
-        assert (int(cam_ids[k]), names[k]) == (im.camera_id, im.name)
-    # the readers with the library, without it, and JAX's: the same
-    with_lib = (tcolmap.read_points3d_binary(str(pts)),
-                tcolmap.read_images_binary(str(ims)))
-    monkeypatch.setattr(gsio, "get_lib", lambda: None)
-    without = (tcolmap.read_points3d_binary(str(pts)),
-               tcolmap.read_images_binary(str(ims)))
-    jax_side = (jcolmap.read_points3d_binary(str(pts)),
-                jcolmap.read_images_binary(str(ims)))
-    for got in (without, jax_side):
-        for a, b in zip(got[0], with_lib[0]):
-            np.testing.assert_array_equal(a, b)
-        assert list(got[1]) == list(with_lib[1])
-        for a, b in zip(got[1].values(), with_lib[1].values()):
-            np.testing.assert_array_equal(a.qvec, b.qvec)
-            np.testing.assert_array_equal(a.tvec, b.tvec)
-            assert (a.id, a.camera_id, a.name) == (b.id, b.camera_id, b.name)
+    got = tcolmap.read_images_binary(str(ims))
+    want = jcolmap.read_images_binary(str(ims))
+    assert len(got) == 13 and list(got) == list(want)
+    for a, b in zip(got.values(), want.values()):
+        np.testing.assert_array_equal(a.qvec, b.qvec)
+        np.testing.assert_array_equal(a.tvec, b.tvec)
+        assert (a.id, a.camera_id, a.name) == (b.id, b.camera_id, b.name)
 
 
-def test_gsio_refuses_truncated_input():
-    rng = np.random.default_rng(4)
-    data = _points3d_bytes(rng, 5)
-    assert gsio.parse_points3d(data[:-3]) is None
-    assert gsio.parse_images(_images_bytes(rng, 3)[:-5]) is None
+def _images_one(pts):
+    """A one-image images.bin with ``pts`` 2D points and the offsets of
+    its name and of its points."""
+    head = struct.pack("<Qi4d3di", 1, 1, *np.ones(4), *np.ones(3), 1)
+    name = b"frame_0001.jpg\x00"
+    body = struct.pack("<Q", pts) + b"\x00" * 24 * pts
+    return head + name + body, len(head), len(head) + len(name) + 8
+
+
+# (file, where the cut falls): the bytes kept
+CUTS = {
+    "images_count": lambda: _images_one(2)[0][:5],
+    "images_name": lambda: _images_one(2)[0][:_images_one(2)[1] + 6],
+    "images_points": lambda: _images_one(2)[0][:_images_one(2)[2] + 30],
+    "points_record": lambda: _points3d_bytes(np.random.default_rng(4),
+                                             5)[:-3],
+}
+
+
+@pytest.mark.parametrize("cut", list(CUTS))
+def test_binary_readers_refuse_truncated_input(tmp_path, cut):
+    path = tmp_path / ("images.bin" if cut.startswith("images")
+                       else "points3D.bin")
+    path.write_bytes(CUTS[cut]())
+    read = (tcolmap.read_images_binary if cut.startswith("images")
+            else tcolmap.read_points3d_binary)
+    with pytest.raises(ValueError, match=path.name):
+        read(str(path))
 
 
 def test_convert_refuses_without_colmap(tmp_path):

@@ -1,4 +1,5 @@
-"""gsplat_tpu_torch inference render against the JAX package.
+"""gsplat_tpu_torch's served frame (``render_frame`` / ``render_image``)
+and training path against the JAX package.
 
 - ``render_forward`` plain version vs the JAX Pallas ``_render_kernel`` in
   interpret mode, both fed JAX's own ``feat`` / ``chunk_meta``: max abs
@@ -6,12 +7,13 @@
   with a single-pass bf16 matmul and accumulates color from bf16 weights;
   the port composites sequentially in float32; both round the output to
   bf16 (one bf16 ULP in [0.5, 1) is 3.9e-3).
-- the whole slice, port ``renderer.render`` vs JAX ``renderer.render``
-  (inference, both expansion branches): PSNR >= 45 dB, ``num_dup`` equal,
-  radii exact.
+- the whole slice, port ``render_image`` vs JAX ``renderer.render``
+  (inference, both expansion branches): PSNR >= 45 dB, ``num_dup`` equal;
+  ``render_frame`` is its ``encode_rgb8``.
 - port inference vs the JAX training path (``tile_blend``, interpret):
   >= 40 dB and mean abs < 5e-3, as tests/test_raster.py:154-178 gates the
   JAX inference path.
+- the port's training path vs JAX's: image, T, ``is_used``, radii.
 - the reference's bf16 global x/y rounding on a 1920x32 strip: PSNR by
   column band of the bf16 feature stream against an f32 stream, pinned
   for the port and for JAX.
@@ -66,8 +68,16 @@ def scene(name):
     js_set = JSettings(k_dup=k_dup, tile_x=tile_x, tile_y=tile_y,
                        interpret=True, inference=True)
     ts_set = trasterize.RasterizeSettings(k_dup=k_dup, tile_x=tile_x,
-                                          tile_y=tile_y, inference=True)
+                                          tile_y=tile_y)
     return js, ts, jc, tc, js_set, ts_set
+
+
+def frame_call(fn, ts, tc, s):
+    """``render_image`` / ``render_frame`` of state ``ts`` with the tiles
+    and budget of settings ``s``."""
+    return fn(ts.xyz, ts.get_scaling(), ts.get_rotation(),
+              ts.get_opacity()[:, 0], ts.get_features(), tc, 1, BG, s.k_dup,
+              alive=ts.alive_mask, tile_x=s.tile_x, tile_y=s.tile_y)
 
 
 def psnr(a, b):
@@ -111,14 +121,19 @@ JAX_REFERENCE = {"expand_16x16": "expand_16x16",
 
 @pytest.fixture(scope="module")
 def renders():
-    """JAX and port inference renders of each config (computed once)."""
+    """JAX inference renders and the port's served frames of each config,
+    before and after the encode (computed once)."""
     out = {}
     for name in CONFIGS:
         js, ts, jc, tc, js_set, ts_set = scene(name)
         jo = None
         if JAX_REFERENCE[name] == name:
             jo = jrenderer.render(jc, js, jnp.asarray(BG), js_set)
-        out[name] = (jo, trenderer.render(tc, ts, BG, ts_set))
+        image, num_dup = frame_call(trasterize.render_image, ts, tc, ts_set)
+        frame, frame_dup = frame_call(trasterize.render_frame, ts, tc, ts_set)
+        assert int(frame_dup) == int(num_dup)
+        out[name] = (jo, {"render": image, "num_dup": num_dup,
+                          "frame": frame})
     return {name: (out[JAX_REFERENCE[name]][0], to)
             for name, (_, to) in out.items()}
 
@@ -130,13 +145,9 @@ def test_render_matches_jax_renderer(renders, name):
     b = to["render"].float().numpy()
     assert to["render"].dtype == torch.bfloat16 and b.shape == a.shape
     assert int(to["num_dup"]) == int(jo["num_dup"])
-    for key in ("radii", "is_used"):
-        # the merge config pads to a larger capacity: extra rows are dead
-        t_v, j_v = to[key].numpy(), np.asarray(jo[key])
-        np.testing.assert_array_equal(t_v[:j_v.shape[0]], j_v, err_msg=key)
-        assert not t_v[j_v.shape[0]:].any()
     assert psnr(a, b) >= 45.0, psnr(a, b)
-    assert float(to["final_t"].abs().max()) == 0.0
+    assert to["frame"].dtype == torch.uint8
+    assert torch.equal(to["frame"], ttile.encode_rgb8(to["render"]))
 
 
 def test_render_merge_branch_matches_expand_branch(renders):
@@ -148,6 +159,7 @@ def test_render_merge_branch_matches_expand_branch(renders):
     # 300 alive rows for any capacity
     assert int(a["num_dup"]) == int(b["num_dup"])
     assert torch.equal(a["render"], b["render"])
+    assert torch.equal(a["frame"], b["frame"])
 
 
 def test_inference_matches_jax_training_path(renders):
@@ -161,13 +173,11 @@ def test_inference_matches_jax_training_path(renders):
     assert np.abs(diff).mean() < 5e-3
 
 
-def test_training_path_not_ported_yet():
-    """The training slice ported the path this test once saw refused:
-    ``renderer.render`` with ``inference=False`` now goes through the
-    training blend and matches JAX's training render (interpret mode)."""
+def test_training_path_matches_jax():
+    """``renderer.render`` (the training blend) against JAX's training
+    render (interpret mode): image, final T, ``is_used`` and radii."""
     js, ts, jc, tc, js_set, ts_set = scene("expand_16x16")
-    got = trenderer.render(tc, ts, BG, dataclasses.replace(ts_set,
-                                                           inference=False))
+    got = trenderer.render(tc, ts, BG, ts_set)
     want = jrenderer.render(jc, js, jnp.asarray(BG),
                             dataclasses.replace(js_set, inference=False))
     assert got["render"].dtype == torch.float32
@@ -175,8 +185,10 @@ def test_training_path_not_ported_yet():
                                np.asarray(want["render"]), atol=5e-5)
     np.testing.assert_allclose(got["final_t"].numpy(),
                                np.asarray(want["final_t"]), atol=5e-5)
-    np.testing.assert_array_equal(got["is_used"].numpy(),
-                                  np.asarray(want["is_used"]))
+    for key in ("is_used", "radii"):
+        np.testing.assert_array_equal(got[key].numpy(),
+                                      np.asarray(want[key]), err_msg=key)
+    assert int(got["radii"].gt(0).sum()) > 0
 
 
 def test_slot_features_round_global_xy_to_bf16():

@@ -7,7 +7,8 @@ and the benchmark readers that read them, on the CPU at tiny sizes.
   ``serve.make_render_fn`` and ``network_gui.image_to_bytes`` gives the
   frame's spans, nested under their roots with the roots' ids, and the
   ``serve.d2h_bytes`` counter; the bytes are those of the untraced path.
-  A uint8 frame alone: its own bytes, the same spans, 3 B a pixel.
+  A uint8 frame alone: its own bytes, the same spans, 3 B a pixel; a
+  float frame is refused.
 - Threads switching often lose no span and no count.
 - One clock: each span lies within 50 us of its ``record_function`` event
   in the profiler's own events.
@@ -32,7 +33,7 @@ from tests.torch_threads import one_torch_thread  # noqa: F401
 
 W, H = 64, 32
 RENDER_CHILDREN = ["raster.preprocess", "raster.binning", "raster.gather",
-                   "raster.render", "raster.assemble", "raster.assemble"]
+                   "raster.render", "raster.assemble", "raster.encode"]
 
 
 def cpu_profile():
@@ -144,7 +145,8 @@ def test_served_frame_spans(clean):
 
 def test_uint8_frame_bytes_and_spans(clean):
     """A uint8 frame (the served frame's type) goes out as its own bytes,
-    through the same spans, counting its 3 B a pixel."""
+    through the same spans, counting its 3 B a pixel; a float frame, as
+    numpy or tensor, is refused."""
     frame = torch.randint(0, 256, (H, W, 3), dtype=torch.uint8,
                           generator=torch.Generator().manual_seed(3))
     with cpu_profile():
@@ -157,6 +159,9 @@ def test_uint8_frame_bytes_and_spans(clean):
             if s is not root[0]] == ["serve.copy", "serve.encode"]
     assert all(s.parent == "serve.bytes" for s in got if s is not root[0])
     assert profiling.counters() == {"serve.d2h_bytes": H * W * 3}
+    for bad in (frame.float() / 255, frame.numpy() / 255):
+        with pytest.raises(ValueError, match="uint8"):
+            network_gui.image_to_bytes(bad)
 
 
 def _clock_offsets():

@@ -159,9 +159,9 @@ def test_cli_default_budget_follows_the_largest_slice(tmp_path,
     assert render_stream.dup_budget(data) == 8 * 10000   # not 8 x 37,500
     seen = []
 
-    def fake(data, camera, frame, bg, settings):
-        seen.append(settings.k_dup)
-        return torch.zeros(camera.height, camera.width, 3)
+    def fake(data, camera, frame, bg, k_dup):
+        seen.append(k_dup)
+        return torch.zeros(camera.height, camera.width, 3, dtype=torch.uint8)
     monkeypatch.setattr(render_stream, "render_stream_frame", fake)
     render_stream.main(["-m", str(out), "-s", str(tmp_path), "--max_frame",
                         "2", "--skip_train", "--data_device", "cpu"])
@@ -194,7 +194,7 @@ def test_played_frame_spans_and_counters(played):
     assert [s.name for s in under] == [
         "stream.select", "raster.preprocess", "raster.binning",
         "raster.gather", "raster.render", "raster.assemble",
-        "raster.assemble"]
+        "raster.encode"]
     assert all(s.id == root[0].id and s.parent == "stream.render"
                for s in under)
     assert counters == {"stream.slice_rows": hi - lo,

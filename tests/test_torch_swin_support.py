@@ -154,12 +154,12 @@ def test_sliwin_manager_matches_jax():
 
 def test_render_stream_frame_renders_the_active_rows(tmp_path):
     """Playback of a stream written from a state's rows equals the union
-    render of that state (no ring, no deformation) at each frame."""
+    render of that state (no ring, no deformation) at each frame, byte
+    for byte."""
     from gsplat_tpu_torch.core.camera import make_camera
     from gsplat_tpu_torch.eval.render_stream import (load_stream_state,
                                                      render_stream_frame)
-    from gsplat_tpu_torch.raster.rasterize import (RasterizeSettings,
-                                                   rasterize)
+    from gsplat_tpu_torch.raster.rasterize import render_frame
 
     ts, _ = state_pair(seed=18, m_count=0, deform=False)
     rows = tswin.extract_rows_host(ts, ts.im.alive_mask)
@@ -167,18 +167,17 @@ def test_render_stream_frame_renders_the_active_rows(tmp_path):
     data = load_stream_state(str(tmp_path), "cpu")
     cam = make_camera(np.eye(3), np.zeros(3), 0.9, 0.7, 64, 48,
                       device="cpu")
-    settings = RasterizeSettings(k_dup=1 << 13, tile_x=16, tile_y=16)
+    k_dup = 1 << 13
     bg = torch.zeros(3)
     for frame in (0.0, 1.0, 3.0):
-        got = render_stream_frame(data, cam, frame, bg, settings)
+        got = render_stream_frame(data, cam, frame, bg, k_dup)
         kw = tswin.union_params_at(ts, frame)
-        want = rasterize(kw["means3d"], kw["scales"], kw["quats"],
-                         kw["opacities"], kw["shs"], cam, 1, bg, settings,
-                         alive=kw["alive"]).image
-        assert float(want.max()) > 0.05
-        np.testing.assert_allclose(got.numpy(),
-                                   torch.clamp(want, 0, 1).detach().numpy(),
-                                   atol=1e-6)
+        want, _ = render_frame(kw["means3d"], kw["scales"], kw["quats"],
+                               kw["opacities"], kw["shs"], cam, 1, bg, k_dup,
+                               alive=kw["alive"])
+        assert got.dtype == torch.uint8 and got.shape == (48, 64, 3)
+        assert int(want.max()) > 0.05 * 255
+        assert torch.equal(got, want)
 
 
 @pytest.fixture
