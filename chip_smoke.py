@@ -51,11 +51,13 @@ the result line is printed:
                beside torch.cummax's time
   small        a 300-Gaussian scene rendered on the card vs the port on
                the CPU
-  serve        per setting, launch counts zeroed, its 8 cameras rendered
-               through viewer.serve.make_render_fn, counts read (one
-               encode_rgb8 a frame); the 16 served uint8 frames' bytes
-               against the host's numpy encode of the same bf16 images
-               (0 differing bytes); encode_rgb8 timed alone (CUDA events),
+  serve        per setting, its 8 cameras rendered through
+               viewer.serve.make_render_fn (each frame a replay of its
+               CUDA graph, captured in the probe; the launches are counted
+               in the profile phase); the 16 served uint8 frames' bytes
+               against the host's numpy encode of the eager render_image's
+               bf16 images of the same cameras (0 differing bytes);
+               encode_rgb8 timed alone (CUDA events),
                a frame's bytes both ways and the copies into pageable and
                page-locked memory
   socket       python -m gsplat_tpu_torch.viewer.serve per setting, 3 SIBR
@@ -202,7 +204,10 @@ the result line is printed:
                one encode a view
   profile      device time by kernel, serving, after every unprofiled
                timing (the port's kernels each by name: their own device
-               time); the idle share against the unprofiled frame time
+               time); the idle share against the unprofiled frame time;
+               the served frames' launches from the same CUDA trace, by
+               kernel name (one owner expansion, render_forward and
+               encode_rgb8 a replayed frame, the other expansion never)
   train_profile  the same for 3 training steps per setting
   swin_profile   the same for 3 swin steps
   cummax_profile multi_cummax's own device time beside its event time
@@ -403,7 +408,8 @@ def probe_serving(card_name):
     """The serving setup: the 100k-Gaussian model written as a PLY (under
     ``model_dir``) and loaded at cap_max 1M, the 8 orbit cameras, num_dup
     per camera, the
-    two settings' k_dup and render functions, and the kernel inputs
+    two settings' k_dup and render functions (each called once, which
+    captures its CUDA graph), the frame's rows, and the kernel inputs
     recorded from camera 0 of each setting (``cap``: expand_scan,
     merge_expand, render_forward; ``store`` also holds _slot_features)."""
     import torch
@@ -455,6 +461,7 @@ def probe_serving(card_name):
                                                 HEIGHT, DEVICE)}
     with capture(binning, "merge_expand", store["merge_expand"]):
         render_fns["merge"](cams[0])
+    render_fns["expand"](cams[0])
     for key in ("expand_scan", "merge_expand", "render_forward"):
         if not store[key]:
             raise AssertionError(f"the main path did not call {key}")
@@ -463,7 +470,8 @@ def probe_serving(card_name):
         num_dup=need, k_dup={"expand": k_expand, "merge": k_merge})
     return dict(cams=cams, model_dir=model_dir,
                 k_dup={"expand": k_expand, "merge": k_merge},
-                render_fns=render_fns, store=store, cap=cap)
+                render_fns=render_fns, store=store, cap=cap,
+                rows=rows + (state.alive_mask,))
 
 
 def render_kwargs(cap_render):
@@ -901,6 +909,13 @@ PORT_KERNELS = ("expand_scan_kernel", "merge_expand_kernel", "render_kernel",
                 "multi_cumsum_kernel", "encode_rgb8_kernel")
 
 
+# the served frame's wrappers -> their kernels' names in the profiler
+SERVED_KERNELS = {"expand_scan": "expand_scan_kernel",
+                  "merge_expand": "merge_expand_kernel",
+                  "render_forward": "render_kernel",
+                  "encode_rgb8": "encode_rgb8_kernel"}
+
+
 def port_kernel_ms(rows):
     """{kernel: device ms} of the port's kernels among a profile's rows
     ((ms, calls, full kernel name)): each kernel's own time on the card,
@@ -919,7 +934,8 @@ def profile_frames(fn, cams, setting, frame_ms, plain_pass_ms, card_name):
     The profiler slows the host, so the idle share sets the device busy
     time against ``frame_ms``, the unprofiled frame time of the fps phase;
     the wall time of an unprofiled pass over the same cameras (taken
-    before any profiling) and of the profiled pass are logged beside it."""
+    before any profiling) and of the profiled pass are logged beside it.
+    Returns {port kernel: launches in the pass}, read from the trace."""
     from torch.profiler import ProfilerActivity, profile
 
     with profile(activities=[ProfilerActivity.CPU,
@@ -934,6 +950,10 @@ def profile_frames(fn, cams, setting, frame_ms, plain_pass_ms, card_name):
                          e.key))
     rows.sort(reverse=True)
     busy = sum(r[0] for r in rows)
+    ran = {name: sum(e.count for e in prof.key_averages()
+                     if str(getattr(e, "device_type", "")).endswith("CUDA")
+                     and name in e.key)
+           for name in PORT_KERNELS}
     log("profile", card=card_name, setting=setting, frame_ms=frame_ms,
         unprofiled_pass_ms_per_frame=plain_pass_ms,
         profiled_pass_ms_per_frame=profiled_pass_ms,
@@ -941,8 +961,10 @@ def profile_frames(fn, cams, setting, frame_ms, plain_pass_ms, card_name):
         idle_share=(1 - busy / frame_ms) if rows else "not measured",
         kernels_per_frame=sum(r[1] for r in rows),
         port_kernels_ms_per_frame=port_kernel_ms(rows),
+        port_kernel_launches=ran,
         top=[{"kernel": k[:70], "ms_per_frame": round(ms, 4), "calls": c}
              for ms, c, k in rows[:14]])
+    return ran
 
 
 def quality(cap_slot, cap_render, served, card_name):
@@ -3838,33 +3860,23 @@ def main() -> int:
     cummax_alone = check_multi_cummax(card_name)
     check_small(card_name)
 
-    # ---- serving main paths, launch counts zeroed just before each and
-    # read just after: one owner-expansion kernel, the render and the
-    # encode per frame; the encode's bf16 inputs recorded
+    # ---- serving main paths (a graph replay a frame; their launches are
+    # counted from the profile phase's trace); then the same cameras'
+    # bf16 images, rendered eagerly, for the encode's check
     wrappers = {"expand_scan": scan_kernel.expand_scan,
                 "merge_expand": scan_kernel.merge_expand,
                 "render_forward": tile_kernel.render_forward,
                 "encode_rgb8": tile_kernel.encode_rgb8}
-    per_frame = {"expand": ("expand_scan", "render_forward", "encode_rgb8"),
-                 "merge": ("merge_expand", "render_forward", "encode_rgb8")}
     images, launches, raw = {}, {}, {}
+    *frame_rows, alive = sv["rows"]
+    bg = torch.zeros(3, device=DEVICE)
     for setting, fn in render_fns.items():
-        for w in wrappers.values():
-            w.launches = 0
-        rec = []
-        with capture(rast, "tile_kernel", rec, attr="encode_rgb8"):
-            images[setting] = [fn(cam) for cam in cams]
+        images[setting] = [fn(cam) for cam in cams]
         torch.cuda.synchronize()
-        raw[setting] = [args[0] for args, _ in rec]
-        launches[setting] = {name: w.launches for name, w in wrappers.items()}
-        want = {name: len(cams) if name in per_frame[setting] else 0
-                for name in wrappers}
-        if launches[setting] != want:
-            raise AssertionError(f"{setting}: launches {launches[setting]}, "
-                                 f"expected {want}")
+        raw[setting] = [rast.render_image(
+            *frame_rows, cam, SH_DEGREE, bg, sv["k_dup"][setting],
+            alive=alive)[0] for cam in cams]
     kernels["encode_rgb8"] = check_encode(raw, images, card_name)
-    for name in wrappers:
-        kernels[name]["launches"] = sum(n[name] for n in launches.values())
     for setting, imgs in images.items():
         for img in imgs:
             if img.shape != (HEIGHT, WIDTH, 3) or img.dtype != torch.uint8:
@@ -3876,7 +3888,7 @@ def main() -> int:
                                                      images["merge"])]
     if not all(same):
         raise AssertionError(f"expand and merge settings differ: {same}")
-    log("serve", card=card_name, frames=2 * len(cams), launches=launches,
+    log("serve", card=card_name, frames=2 * len(cams),
         image_means=[round(float(i.float().mean()) / 255, 5)
                      for i in images["expand"]],
         settings_identical=True)
@@ -3992,9 +4004,19 @@ def main() -> int:
     torch.cuda.empty_cache()
 
     # ---- device time by kernel, after every unprofiled timing
+    # the served frames' launches, by kernel name, from each pass's trace
+    per_frame = {"expand": ("expand_scan", "render_forward", "encode_rgb8"),
+                 "merge": ("merge_expand", "render_forward", "encode_rgb8")}
     for setting, fn in render_fns.items():
-        profile_frames(fn, cams, setting, 1e3 / fps[setting], passes[setting],
-                       card_name)
+        ran = profile_frames(fn, cams, setting, 1e3 / fps[setting],
+                             passes[setting], card_name)
+        launches[setting] = {name: ran[kernel]
+                             for name, kernel in SERVED_KERNELS.items()}
+        want = {name: len(cams) if name in per_frame[setting] else 0
+                for name in SERVED_KERNELS}
+        if launches[setting] != want:
+            raise AssertionError(f"{setting}: launches {launches[setting]} "
+                                 f"in the trace, expected {want}")
     for name, st in setups.items():
         profile_train(name, st, *trained[name], step_ms[name], card_name)
     profile_swin(swin_st, *swin_trained, swin_ms, card_name)

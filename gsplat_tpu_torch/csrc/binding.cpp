@@ -13,8 +13,8 @@
 extern "C" {
 long long gsplat_expand_scan_state_words(long long k);
 int gsplat_expand_scan(const int* marks, const int* base_in, long long k,
-                       void* state, unsigned long long epoch, int* pack_out,
-                       int* base_out, int* rank_out, cudaStream_t stream);
+                       void* state, int* pack_out, int* base_out,
+                       int* rank_out, cudaStream_t stream);
 int gsplat_merge_expand(const int* starts, const int* pack, int p, int k,
                         int* pack_out, int* base_out, int* rank_out,
                         cudaStream_t stream);
@@ -37,13 +37,11 @@ int gsplat_blend_backward(const float* feat, long long k_slots,
                           int chunk, cudaStream_t stream);
 long long gsplat_multi_cumsum_state_words(int n, long long k);
 int gsplat_multi_cumsum(const float* x, int n, long long k, void* state,
-                        unsigned long long epoch, float* out,
-                        cudaStream_t stream);
+                        float* out, cudaStream_t stream);
 long long gsplat_multi_cummax_state_words(int n, long long k);
 unsigned long long gsplat_multi_cummax_epoch_limit();
 int gsplat_multi_cummax(const int* x, int n, long long k, void* state,
-                        unsigned long long epoch, int* out,
-                        cudaStream_t stream);
+                        int* out, cudaStream_t stream);
 int gsplat_encode_rgb8(const void* img, long long n, void* out,
                        cudaStream_t stream);
 }
@@ -62,11 +60,10 @@ int64_t expand_scan_state_words(int64_t k) {
 }
 
 void expand_scan(torch::Tensor marks, torch::Tensor base_in,
-                 torch::Tensor state, int64_t epoch, torch::Tensor pack,
-                 torch::Tensor base, torch::Tensor rank) {
+                 torch::Tensor state, torch::Tensor pack, torch::Tensor base,
+                 torch::Tensor rank) {
   check(gsplat_expand_scan(marks.data_ptr<int>(), base_in.data_ptr<int>(),
                            marks.numel(), state.data_ptr<int64_t>(),
-                           static_cast<unsigned long long>(epoch),
                            pack.data_ptr<int>(), base.data_ptr<int>(),
                            rank.data_ptr<int>(), stream()),
         "expand_scan");
@@ -142,13 +139,11 @@ int64_t multi_cumsum_state_words(int64_t n, int64_t k) {
   return gsplat_multi_cumsum_state_words(static_cast<int>(n), k);
 }
 
-void multi_cumsum(torch::Tensor x, torch::Tensor state, int64_t epoch,
-                  torch::Tensor out) {
+void multi_cumsum(torch::Tensor x, torch::Tensor state, torch::Tensor out) {
   check(gsplat_multi_cumsum(x.data_ptr<float>(),
                             static_cast<int>(x.size(0)), x.size(1),
-                            state.data_ptr<int64_t>(),
-                            static_cast<unsigned long long>(epoch),
-                            out.data_ptr<float>(), stream()),
+                            state.data_ptr<int64_t>(), out.data_ptr<float>(),
+                            stream()),
         "multi_cumsum");
 }
 
@@ -160,11 +155,9 @@ int64_t multi_cummax_epoch_limit() {
   return static_cast<int64_t>(gsplat_multi_cummax_epoch_limit());
 }
 
-void multi_cummax(torch::Tensor x, torch::Tensor state, int64_t epoch,
-                  torch::Tensor out) {
+void multi_cummax(torch::Tensor x, torch::Tensor state, torch::Tensor out) {
   check(gsplat_multi_cummax(x.data_ptr<int>(), static_cast<int>(x.size(0)),
                             x.size(1), state.data_ptr<int64_t>(),
-                            static_cast<unsigned long long>(epoch),
                             out.data_ptr<int>(), stream()),
         "multi_cummax");
 }

@@ -28,8 +28,14 @@
 //   L2 (__ldcg).
 // - Status words carry the call's epoch beside the flag, so words left by
 //   an earlier call read as "not yet published" and nothing has to be
-//   cleared between calls: the wrapper keeps one zero-initialised state
-//   buffer per device and stream and counts the epochs.
+//   cleared between calls. The epoch lives in the state buffer's header,
+//   in the ticket's word (take_ticket): a block's ticket comes with it,
+//   and the block that takes the last ticket advances it. So a launch
+//   needs nothing from the host but a buffer zero-filled once, and every
+//   replay of a captured CUDA graph runs under an epoch of its own. The
+//   epoch starts again at 1 after 2^32 - 1 calls; a status word left by a
+//   call that long ago, and by no call of as many tiles since, would read
+//   as published.
 // - Every thread writes its slots' three outputs once, with 16-byte stores.
 //
 // Tiles past K's end and buffers that are not 16-byte aligned take scalar
@@ -79,7 +85,8 @@
 // an H100, the cumsum_tile4096 ablation):
 //
 // - Tiles (row-major over the rows) come from the same self-resetting
-//   ticket counter; a tile's look-back stays inside its row.
+//   ticket counter, with the epoch beside it; a tile's look-back stays
+//   inside its row.
 // - A tile publishes its float total A_b, then its inclusive prefix as a
 //   Neumaier pair P_b = fold(P_{b-1}, A_b) (P_{-1} = (0, 0)), each value
 //   stored before its epoch-tagged status word (release / acquire).
@@ -108,7 +115,9 @@
 //   value, written with one relaxed 64-bit store and read with relaxed
 //   loads: the value travels with its flag, so there is no value-then-
 //   status handshake (release / acquire) and no second read. The epoch
-//   has 30 bits; the wrapper starts a zeroed buffer before it runs out.
+//   has 30 bits and starts again at 1 after 2^30 - 1 calls, with
+//   expand_scan's caveat (at one call a densification, a billion
+//   densifications).
 // - Max is exact and idempotent, so the look-back takes the maximum of
 //   everything it read up to the nearest prefix, in any order, and the
 //   result is the sequential scan's bit for bit: no tile order on one
@@ -188,6 +197,9 @@ __device__ __forceinline__ Owner warp_inclusive_scan(Owner v, int lane) {
 
 constexpr int kFlagAggregate = 1;
 constexpr int kFlagPrefix = 2;
+// epochs of expand_scan's and multi_cumsum's status words (epoch << 2 |
+// flag): the header's 32 bits
+constexpr unsigned long long kEpochLimit = 1ull << 32;
 constexpr int kRowSlots = 32 * 4;  // one 16-byte load a lane
 constexpr int kRows = kScanItems / 4;
 
@@ -213,6 +225,27 @@ __device__ __forceinline__ void store_release(unsigned long long* p,
                                               unsigned long long v) {
   asm volatile("st.release.gpu.global.u64 [%0], %1;" ::"l"(p), "l"(v)
                : "memory");
+}
+
+// The state buffer's header, its first 32 bytes: word 0 packs the epoch
+// of the last call (high 32 bits, 0 in a zeroed buffer) with the ticket
+// counter (low 32 bits). Thread 0 of each block takes its tile with one
+// atomic add, which reads the epoch with it; the block that takes the last
+// ticket (every other block of the call has taken its own by then, under
+// the same epoch) puts the counter back to 0 and stores this call's
+// epoch, one more than the last call's, wrapping to 1 below ``limit``.
+__device__ __forceinline__ long long take_ticket(unsigned long long* header,
+                                                 int tiles,
+                                                 unsigned long long limit,
+                                                 unsigned long long* epoch) {
+  const unsigned long long old = atomicAdd(header, 1ull);
+  const unsigned long long e = (old >> 32) + 1;
+  const unsigned long long t = old & 0xffffffffull;
+  if (t == static_cast<unsigned long long>(tiles - 1)) {
+    atomicExch(header, (e + 1 == limit ? 0ull : e) << 32);
+  }
+  *epoch = e;
+  return static_cast<long long>(t);
 }
 
 // a value, then its status word (release: the value is seen first)
@@ -294,25 +327,23 @@ __device__ __forceinline__ Owner slot_of(int mark, int base) {
   return Owner{mark, base, mark != 0 ? 1 : 0};
 }
 
-__global__ void __launch_bounds__(kScanThreads)
+// three blocks an SM: at 86 registers (the epoch's take_ticket) two fit
+// and the kernel ran 13% slower on an H100; bounded, 80 and no spills
+__global__ void __launch_bounds__(kScanThreads, 3)
 expand_scan_kernel(const int* __restrict__ marks,
                    const int* __restrict__ base_in, long long k,
-                   unsigned long long* __restrict__ ticket,
-                   TileState* __restrict__ state, int tiles,
-                   unsigned long long epoch, bool vec,
+                   unsigned long long* __restrict__ header,
+                   TileState* __restrict__ state, int tiles, bool vec,
                    int* __restrict__ pack_out, int* __restrict__ base_out,
                    int* __restrict__ rank_out) {
   __shared__ long long s_tile;
+  __shared__ unsigned long long s_epoch;
   __shared__ Owner s_warp[kScanWarps];
   __shared__ Owner s_carry;
   const int lane = threadIdx.x & 31;
   const int warp = threadIdx.x >> 5;
   if (threadIdx.x == 0) {
-    const unsigned long long t = atomicAdd(ticket, 1ull);
-    if (t == static_cast<unsigned long long>(tiles - 1)) {
-      atomicExch(ticket, 0ull);
-    }
-    s_tile = static_cast<long long>(t);
+    s_tile = take_ticket(header, tiles, kEpochLimit, &s_epoch);
   }
   __syncthreads();
   const long long tile = s_tile;
@@ -344,6 +375,7 @@ expand_scan_kernel(const int* __restrict__ marks,
 
   // 2. The tile's carry: publish, look back, publish the prefix.
   if (warp == 0) {
+    const unsigned long long epoch = s_epoch;  // not held through the scan
     Owner total = identity();
     for (int w = 0; w < kScanWarps; ++w) total = combine(total, s_warp[w]);
     TileState* s = state + tile;
@@ -622,21 +654,18 @@ __device__ void cumsum_look_back(const SumState* state, long long tile,
 
 __global__ void __launch_bounds__(kSumThreads)
 multi_cumsum_kernel(const float* __restrict__ x, long long k, int row_tiles,
-                    unsigned long long* __restrict__ ticket,
+                    unsigned long long* __restrict__ header,
                     SumState* __restrict__ state, int tiles,
-                    unsigned long long epoch, float* __restrict__ out) {
+                    float* __restrict__ out) {
   __shared__ long long s_tile;
+  __shared__ unsigned long long s_epoch;
   __shared__ float s_warp[kSumWarps];
   __shared__ float s_carry;
   __shared__ float s_agg[kLookWindows][32];
   const int lane = threadIdx.x & 31;
   const int warp = threadIdx.x >> 5;
   if (threadIdx.x == 0) {
-    const unsigned long long t = atomicAdd(ticket, 1ull);
-    if (t == static_cast<unsigned long long>(tiles - 1)) {
-      atomicExch(ticket, 0ull);
-    }
-    s_tile = static_cast<long long>(t);
+    s_tile = take_ticket(header, tiles, kEpochLimit, &s_epoch);
   }
   __syncthreads();
   const long long tile = s_tile;
@@ -675,6 +704,7 @@ multi_cumsum_kernel(const float* __restrict__ x, long long k, int row_tiles,
   // 2. The tile's carry P_{b-1}: publish the total, look back, publish
   //    the inclusive prefix fold(P_{b-1}, total).
   if (warp == 0) {
+    const unsigned long long epoch = s_epoch;  // not held through the scan
     float total = 0.0f;
     for (int w = 0; w < kSumWarps; ++w) total += s_warp[w];
     SumState* s = state + tile;
@@ -800,20 +830,17 @@ __device__ int cummax_look_back(const unsigned long long* state,
 
 __global__ void __launch_bounds__(kMaxThreads)
 multi_cummax_kernel(const int* __restrict__ x, long long k, int row_tiles,
-                    unsigned long long* __restrict__ ticket,
+                    unsigned long long* __restrict__ header,
                     unsigned long long* __restrict__ state, int tiles,
-                    unsigned long long epoch, int* __restrict__ out) {
+                    int* __restrict__ out) {
   __shared__ long long s_tile;
+  __shared__ unsigned long long s_epoch;
   __shared__ int s_warp[kMaxWarps];
   __shared__ int s_carry;
   const int lane = threadIdx.x & 31;
   const int warp = threadIdx.x >> 5;
   if (threadIdx.x == 0) {
-    const unsigned long long t = atomicAdd(ticket, 1ull);
-    if (t == static_cast<unsigned long long>(tiles - 1)) {
-      atomicExch(ticket, 0ull);
-    }
-    s_tile = static_cast<long long>(t);
+    s_tile = take_ticket(header, tiles, 1ull << kMaxEpochBits, &s_epoch);
   }
   __syncthreads();
   const long long tile = s_tile;
@@ -853,6 +880,7 @@ multi_cummax_kernel(const int* __restrict__ x, long long k, int row_tiles,
   // 2. The tile's carry: publish the tile's maximum, look back, publish
   //    the inclusive prefix max(carry, maximum); each one 64-bit store.
   if (warp == 0) {
+    const unsigned long long epoch = s_epoch;  // not held through the scan
     int total = kIntMin;
     for (int w = 0; w < kMaxWarps; ++w) total = max(total, s_warp[w]);
     int carry = kIntMin;
@@ -886,37 +914,32 @@ multi_cummax_kernel(const int* __restrict__ x, long long k, int row_tiles,
 }  // namespace
 
 // int64 words of the look-back state multi_cumsum takes for n rows of k:
-// the ticket counter (padded to 32 bytes), then one SumState a tile. The
-// caller zero-fills it once and passes a larger epoch on every later call
-// that uses it.
+// the header (ticket and epoch, padded to 32 bytes), then one SumState a
+// tile. The caller zero-fills it once.
 extern "C" long long gsplat_multi_cumsum_state_words(int n, long long k) {
   const long long tiles = (long long)n * ((k + kSumTile - 1) / kSumTile);
   return 4 * (tiles + 1);
 }
 
 // x, out: [n, k] row-major; state: gsplat_multi_cumsum_state_words(n, k)
-// int64, epoch >= 1 and larger than on every earlier call with this
-// buffer; calls sharing a buffer must not overlap (one stream)
+// int64; calls sharing a buffer must not overlap (one stream)
 extern "C" int gsplat_multi_cumsum(const float* x, int n, long long k,
-                                   void* state, unsigned long long epoch,
-                                   float* out, cudaStream_t stream) {
+                                   void* state, float* out,
+                                   cudaStream_t stream) {
   const long long row_tiles = (k + kSumTile - 1) / kSumTile;
   const long long tiles = (long long)n * row_tiles;
   if (tiles == 0) return 0;
-  if (tiles > 0x7fffffffLL || epoch == 0 || epoch >= (1ull << 62)) {
-    return (int)cudaErrorInvalidValue;
-  }
-  auto* ticket = static_cast<unsigned long long*>(state);
-  auto* tile_state = reinterpret_cast<SumState*>(ticket + 4);
+  if (tiles > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
+  auto* header = static_cast<unsigned long long*>(state);
+  auto* tile_state = reinterpret_cast<SumState*>(header + 4);
   multi_cumsum_kernel<<<(unsigned)tiles, kSumThreads, 0, stream>>>(
-      x, k, (int)row_tiles, ticket, tile_state, (int)tiles, epoch, out);
+      x, k, (int)row_tiles, header, tile_state, (int)tiles, out);
   return (int)cudaGetLastError();
 }
 
 // int64 words of the look-back state multi_cummax takes for n rows of k:
-// the ticket counter (padded to 32 bytes), then one packed status word a
-// tile. The caller zero-fills it once and passes a larger epoch on every
-// later call that uses it, below gsplat_multi_cummax_epoch_limit().
+// the header (ticket and epoch, padded to 32 bytes), then one packed
+// status word a tile. The caller zero-fills it once.
 extern "C" long long gsplat_multi_cummax_state_words(int n, long long k) {
   const long long tiles = (long long)n * ((k + kMaxTile - 1) / kMaxTile);
   return 4 + tiles;
@@ -927,56 +950,47 @@ extern "C" unsigned long long gsplat_multi_cummax_epoch_limit() {
 }
 
 // x, out: [n, k] row-major int32; state: gsplat_multi_cummax_state_words
-// int64, 1 <= epoch < gsplat_multi_cummax_epoch_limit() and larger than on
-// every earlier call with this buffer; calls sharing a buffer must not
-// overlap (one stream)
+// int64; calls sharing a buffer must not overlap (one stream)
 extern "C" int gsplat_multi_cummax(const int* x, int n, long long k,
-                                   void* state, unsigned long long epoch,
-                                   int* out, cudaStream_t stream) {
+                                   void* state, int* out,
+                                   cudaStream_t stream) {
   const long long row_tiles = (k + kMaxTile - 1) / kMaxTile;
   const long long tiles = (long long)n * row_tiles;
   if (tiles == 0) return 0;
-  if (tiles > 0x7fffffffLL || epoch == 0 ||
-      epoch >= (1ull << kMaxEpochBits)) {
-    return (int)cudaErrorInvalidValue;
-  }
-  auto* ticket = static_cast<unsigned long long*>(state);
+  if (tiles > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
+  auto* header = static_cast<unsigned long long*>(state);
   multi_cummax_kernel<<<(unsigned)tiles, kMaxThreads, 0, stream>>>(
-      x, k, (int)row_tiles, ticket, ticket + 4, (int)tiles, epoch, out);
+      x, k, (int)row_tiles, header, header + 4, (int)tiles, out);
   return (int)cudaGetLastError();
 }
 
-// int64 words of the state buffer expand_scan takes: the ticket counter
-// (padded to 32 bytes), then one TileState a tile. The caller zero-fills it
-// once and passes a larger epoch on every later call that uses it.
+// int64 words of the state buffer expand_scan takes: the header (ticket
+// and epoch, padded to 32 bytes), then one TileState a tile. The caller
+// zero-fills it once.
 extern "C" long long gsplat_expand_scan_state_words(long long k) {
   const long long tiles = (k + kScanTile - 1) / kScanTile;
   return 4 * (tiles + 1);
 }
 
-// state: gsplat_expand_scan_state_words(k) int64, epoch >= 1 and larger
-// than on every earlier call with this buffer; calls sharing a buffer must
-// not overlap (one stream)
+// state: gsplat_expand_scan_state_words(k) int64; calls sharing a buffer
+// must not overlap (one stream)
 extern "C" int gsplat_expand_scan(const int* marks, const int* base_in,
-                                  long long k, void* state,
-                                  unsigned long long epoch, int* pack_out,
+                                  long long k, void* state, int* pack_out,
                                   int* base_out, int* rank_out,
                                   cudaStream_t stream) {
   const long long tiles = (k + kScanTile - 1) / kScanTile;
   if (tiles == 0) return 0;
-  if (tiles > 0x7fffffffLL || epoch == 0 || epoch >= (1ull << 62)) {
-    return (int)cudaErrorInvalidValue;
-  }
+  if (tiles > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
   auto aligned = [](const void* p) {
     return (reinterpret_cast<unsigned long long>(p) & 15u) == 0;
   };
   const bool vec = aligned(marks) && aligned(base_in) && aligned(pack_out) &&
                    aligned(base_out) && aligned(rank_out);
-  auto* ticket = static_cast<unsigned long long*>(state);
-  auto* tile_state = reinterpret_cast<TileState*>(ticket + 4);
+  auto* header = static_cast<unsigned long long*>(state);
+  auto* tile_state = reinterpret_cast<TileState*>(header + 4);
   expand_scan_kernel<<<(unsigned)tiles, kScanThreads, 0, stream>>>(
-      marks, base_in, k, ticket, tile_state, (int)tiles, epoch, vec,
-      pack_out, base_out, rank_out);
+      marks, base_in, k, header, tile_state, (int)tiles, vec, pack_out,
+      base_out, rank_out);
   return (int)cudaGetLastError();
 }
 

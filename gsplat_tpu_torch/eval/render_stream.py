@@ -17,6 +17,12 @@ bounds and live-row count as host integers; a frame renders its slice
 alone, masked by ``start <= f``. The activated columns (scales,
 unit quaternions, opacities, SH) are computed once, at load.
 
+The player (``make_stream_render_fn``) copies each frame's slice into
+buffers as wide as the widest slice, the rows past it dead, and renders
+them through ``FrameGraph``: one CUDA graph serves every video frame,
+and the ``start <= f`` mask is computed inside it from the staged frame
+number.
+
 The duplicate budget is ``--dup_budget``, else max(8 x the largest
 slice, 65536), rounded up to 128.
 
@@ -39,7 +45,7 @@ from gsplat_tpu_torch.core.camera import CameraParams
 from gsplat_tpu_torch.core.quaternion import normalize
 from gsplat_tpu_torch.data.scene import DynamicScene
 from gsplat_tpu_torch.eval.render import save_png
-from gsplat_tpu_torch.raster.rasterize import render_frame
+from gsplat_tpu_torch.raster.rasterize import FrameGraph, render_frame
 from gsplat_tpu_torch.utils.profiling import count, span
 from gsplat_tpu_torch.utils.stream import stream_load
 
@@ -97,12 +103,27 @@ def frame_rows(data: dict, frame: float) -> tuple[int, int, int]:
             int(data["live_rows"][f]))
 
 
+def widest_slice(data: dict) -> int:
+    """The most rows any frame's slice holds."""
+    hi, lo = data["slice_hi"], data["slice_lo"]
+    return int((hi - lo).max()) if len(lo) else 0
+
+
 def dup_budget(data: dict) -> int:
     """The CLI's default duplicate budget: max(8 x the largest slice,
     65536)."""
-    hi, lo = data["slice_hi"], data["slice_lo"]
-    widest = int((hi - lo).max()) if len(lo) else 0
-    return max(8 * widest, 1 << 16)
+    return max(8 * widest_slice(data), 1 << 16)
+
+
+def select_rows(data: dict, frame: float) -> tuple[int, int]:
+    """``frame_rows``' slice (lo, hi) of a played frame, under the span
+    ``stream.select``, its rows and live rows counted
+    (``stream.slice_rows``, ``stream.live_rows``)."""
+    with span("stream.select"):
+        lo, hi, live = frame_rows(data, frame)
+        count("stream.slice_rows", hi - lo)
+        count("stream.live_rows", live)
+    return lo, hi
 
 
 def render_stream_frame(data: dict, camera: CameraParams, frame: float, bg,
@@ -112,12 +133,9 @@ def render_stream_frame(data: dict, camera: CameraParams, frame: float, bg,
     none, stream_utils.py:16-32, so the reference's playback drops it
     too), through ``render_frame`` on the frame's slice alone -> uint8
     [H, W, 3]."""
-    with span("stream.select"):
-        lo, hi, live = frame_rows(data, frame)
-        count("stream.slice_rows", hi - lo)
-        count("stream.live_rows", live)
-        rows = [data[k][lo:hi] for k in COLUMNS]
-        alive = data["start_frame"][lo:hi] <= frame
+    lo, hi = select_rows(data, frame)
+    rows = [data[k][lo:hi] for k in COLUMNS]
+    alive = data["start_frame"][lo:hi] <= frame
     return render_frame(*rows, camera, data["sh_degree"], bg, k_dup,
                         alive=alive)[0]
 
@@ -125,17 +143,39 @@ def render_stream_frame(data: dict, camera: CameraParams, frame: float, bg,
 def make_stream_render_fn(stream: dict, k_dup: int, width: int,
                           height: int, device: str | torch.device = "cuda"):
     """The player's render for one resolution: camera, frame -> the frame
-    a viewer receives, uint8 [H, W, 3] on ``device``
-    (``render_stream_frame`` over a black background)."""
+    a viewer receives, uint8 [H, W, 3] on ``device``, over a black
+    background: ``render_stream_frame``'s frame, through ``FrameGraph``.
+    The frame's slice is copied into the first rows of buffers as wide as
+    the widest slice; the rest get start = inf, so ``start <= f`` culls
+    them, and one graph plays every frame; the copies are the span
+    ``stream.stage``."""
     device = get_device(device)
     bg = torch.zeros(3, dtype=torch.float32, device=device)
+    wide = widest_slice(stream)
+    names = COLUMNS + ("start_frame",)
+    staged = {k: stream[k].new_zeros((wide,) + stream[k].shape[1:])
+              for k in names}
+    dead = torch.full((wide,), float("inf"), device=device)
+    frame_no = torch.zeros((), device=device)
+
+    def rows():
+        return (*(staged[k] for k in COLUMNS),
+                staged["start_frame"] <= frame_no)
+
+    frames = FrameGraph(rows, stream["sh_degree"], bg, k_dup)
 
     def render(camera: CameraParams, frame: float):
         if (camera.width, camera.height) != (width, height):
             raise ValueError(f"camera is {camera.width}x{camera.height}, "
                              f"this render is {width}x{height}")
         with span("stream.render"):
-            return render_stream_frame(stream, camera, frame, bg, k_dup)
+            lo, hi = select_rows(stream, frame)
+            with span("stream.stage"):
+                for k in names:
+                    staged[k][:hi - lo].copy_(stream[k][lo:hi])
+                staged["start_frame"][hi - lo:].copy_(dead[hi - lo:])
+                frame_no.fill_(frame)
+            return frames(camera)
 
     return render
 

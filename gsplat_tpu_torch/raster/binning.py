@@ -181,7 +181,7 @@ def bin_gaussians(proc: Preprocessed, *, tile_x: int, tile_y: int,
     tile_id = ty * grid_x + tx
 
     # a slot is real iff its Gaussian's whole rect fits the budget
-    k_t = torch.tensor([k_dup], dtype=_I32, device=dev)
+    k_t = torch.full((1,), k_dup, dtype=_I32, device=dev)
     dup_limit = offsets[torch.searchsorted(offsets, k_t, right=True) - 1]
     in_budget = d < torch.minimum(dup_limit, num_dup)
     dup_key = torch.where(in_budget, tile_id,

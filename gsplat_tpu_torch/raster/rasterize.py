@@ -9,6 +9,8 @@ preprocess -> bin_gaussians (depth sort, owner expansion, chunk padding)
   inference render with the background composited in-kernel, 128x32
   tiles, the uint8 [H, W, 3] bytes made on the device. ``render_image``
   is the same frame before its encode, a [3, H, W] bf16 image.
+  ``FrameGraph`` replays it as one CUDA graph a frame (the server's and
+  the player's render).
 - ``rasterize`` (training): a float32 stream, ``tile_kernel.tile_blend``
   (blend forward and backward kernels), the background added outside, an
   [H, W, 3] (``layout="hwc"``) or [3, H, W] (``"chw"``) float32 image, the
@@ -27,6 +29,7 @@ grid of 8 px (gsplat_tpu/raster/rasterize.py:246-248).
 from __future__ import annotations
 
 import dataclasses
+import functools
 from typing import NamedTuple
 
 import torch
@@ -35,7 +38,7 @@ from gsplat_tpu_torch.core.camera import CameraParams
 from gsplat_tpu_torch.raster import binning as binning_lib
 from gsplat_tpu_torch.raster import project as project_lib
 from gsplat_tpu_torch.raster import scan_kernel, tile_kernel
-from gsplat_tpu_torch.utils.profiling import span
+from gsplat_tpu_torch.utils.profiling import count, span
 
 # the served frame's tiles and chunk; its slot count is aligned to
 # SUPER_CHUNKS chunks, as the training path's default
@@ -180,7 +183,8 @@ def render_image(means3d, scales, quats, opacities, shs,
                  tile_x: int = TILE_X, tile_y: int = TILE_Y):
     """The served frame before its encode: ([3, H, W] bf16 image over
     ``bg``, [] int32 num_dup). ``k_dup`` is the Gaussian x tile duplicate
-    budget; overflow is reported through ``num_dup``."""
+    budget; overflow is reported through ``num_dup``. ``scale_modifier``
+    is a float or a 0-d float32 tensor on the rows' device."""
     width, height = camera.width, camera.height
     grid_x = -(-width // tile_x)
     grid_y = -(-height // tile_y)
@@ -220,6 +224,90 @@ def render_frame(means3d, scales, quats, opacities, shs,
         tile_y=tile_y)
     with span("raster.encode"):
         return tile_kernel.encode_rgb8(image), num_dup
+
+
+# the camera's tensors a frame reads, staged into a graph's buffers
+_CAMERA_TENSORS = ("view", "full_proj", "cam_pos", "tan_fovx", "tan_fovy")
+
+
+@functools.cache
+def _capture_stream(device: torch.device):
+    return torch.cuda.Stream(device)
+
+
+class FrameGraph:
+    """``render_frame`` captured once as a CUDA graph and replayed for each
+    later frame: one graph launch a frame instead of ~550 kernel launches
+    from Python.
+
+    ``rows()`` returns (means3d, scales, quats, opacities, shs, alive). A
+    graph reads the tensors it read at capture, so what changes from frame
+    to frame is written into them in place (the stream player stages its
+    slice), and what ``rows()`` computes (the player's ``start <= f``
+    mask) is part of the graph. ``bg`` is a float32 [3] tensor on the
+    rows' device.
+
+    Each call copies the camera's tensors and ``scale_modifier`` (a 0-d
+    float32 tensor) into the graph's buffers, replays, and returns a copy
+    of the graph's uint8 frame (the next replay overwrites it). The graph
+    holds the frame's resolution; a call at another drops it and captures
+    anew, so one graph's memory (about the frame's peak) is held at a
+    time. The first call renders once eagerly on a side stream (the scans'
+    look-back buffers and every lazy set-up happen outside the capture),
+    captures on it and replays. A replay runs no Python wrapper, so the
+    wrappers' ``launches`` and the ``raster.*`` spans see the eager frame
+    and the capture only; the counters ``raster.graph_capture`` and
+    ``raster.graph_replay`` count captures and later replays. On the CPU
+    each call runs ``render_frame`` on the same buffers."""
+
+    def __init__(self, rows, sh_degree: int, bg, k_dup: int):
+        self.rows = rows
+        self.sh_degree, self.bg, self.k_dup = sh_degree, bg, k_dup
+        self.size = self.camera = self.graph = self.out = None
+        self.scale = torch.ones((), device=bg.device)
+        self.scale_value = 1.0
+
+    def _render(self):
+        *rows, alive = self.rows()
+        return render_frame(*rows, self.camera, self.sh_degree, self.bg,
+                            self.k_dup, alive=alive,
+                            scale_modifier=self.scale)[0]
+
+    def __call__(self, camera: CameraParams, scale_modifier: float = 1.0):
+        if (camera.width, camera.height) != self.size:
+            # the old graph is freed before the next capture
+            self.size, self.graph, self.out = (camera.width,
+                                               camera.height), None, None
+            self.camera = dataclasses.replace(camera, **{
+                f: getattr(camera, f).clone() for f in _CAMERA_TENSORS})
+        for f in _CAMERA_TENSORS:
+            getattr(self.camera, f).copy_(getattr(camera, f))
+        if scale_modifier != self.scale_value:
+            self.scale.fill_(scale_modifier)
+            self.scale_value = scale_modifier
+        if not self.camera.view.is_cuda:
+            return self._render()
+        if self.graph is None:
+            self._capture()
+        else:
+            self.graph.replay()
+            count("raster.graph_replay", 1)
+        return self.out.clone()
+
+    def _capture(self):
+        """Renders eagerly, then captures the frame and replays it once."""
+        main = torch.cuda.current_stream(self.camera.view.device)
+        side = _capture_stream(self.camera.view.device)
+        side.wait_stream(main)
+        with torch.cuda.stream(side):
+            self._render()
+        main.wait_stream(side)
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph, stream=side):
+            self.out = self._render()
+        self.graph = graph
+        count("raster.graph_capture", 1)
+        graph.replay()
 
 
 def rasterize(means3d, scales, quats, opacities, shs, camera: CameraParams,

@@ -15,9 +15,10 @@ it. The source notes in the .cu file give each kernel's bound and design.
   ``base_in`` (floored at 0, as the TPU carry starts at 0) and the 1-based
   running count of nonzero marks. The kernel is a single-pass chained
   scan; its look-back state lives in a buffer kept per kernel, device and
-  stream (``_lookback_state``), zero-filled once and tagged with a new
-  epoch on every call, so a call launches the one kernel and nothing
-  else.
+  stream (``_lookback_state``), zero-filled once. The kernel keeps the
+  call's epoch in the buffer and advances it itself, so a call launches
+  the one kernel and nothing else, and a launch captured in a CUDA graph
+  is right on every replay.
 - ``merge_expand`` replaces ``scan_kernel._merge_kernel``: slot d's owner
   is the last g with ``starts[g] <= d`` (``starts`` ascending); returns
   ``pack[g]``, ``starts[g]`` and ``g + 1`` (all 0 where no start is <= d).
@@ -69,27 +70,28 @@ def expand_scan_plain(marks: torch.Tensor, base_in: torch.Tensor):
     return pack, base, rank
 
 
-# (kernel, device index, stream id) -> [int64 state buffer, last epoch]
+# (kernel, device index, stream id) -> int64 state buffer
 _LOOKBACK: dict = {}
+# the buffers _LOOKBACK has outgrown: a launch captured in a CUDA graph
+# keeps reading the buffer it was given
+_OUTGROWN: list = []
 
 
-def _lookback_state(kernel: str, device: torch.device, words: int,
-                    epoch_limit: int = 1 << 62):
+def _lookback_state(kernel: str, device: torch.device, words: int):
     """The look-back state buffer of ``kernel`` on ``device``'s current
-    stream, at least ``words`` int64 long, and the epoch for the next call,
-    below ``epoch_limit``. A new or larger buffer, or one whose epochs ran
-    out, is zero-filled (its epochs start again at 1); calls of one kernel
+    stream, at least ``words`` int64 long; a new or larger one is
+    zero-filled, and every buffer handed out is kept. Calls of one kernel
     on one stream never overlap, so they can share it. Each kernel has its
     own buffer: they lay their tiles' states out differently."""
     key = (kernel, device.index,
            torch.cuda.current_stream(device).cuda_stream)
-    entry = _LOOKBACK.get(key)
-    if (entry is None or entry[0].numel() < words
-            or entry[1] + 1 >= epoch_limit):
-        entry = _LOOKBACK[key] = [torch.zeros(words, dtype=torch.int64,
-                                              device=device), 0]
-    entry[1] += 1
-    return entry[0], entry[1]
+    state = _LOOKBACK.get(key)
+    if state is None or state.numel() < words:
+        if state is not None:
+            _OUTGROWN.append(state)
+        state = _LOOKBACK[key] = torch.zeros(words, dtype=torch.int64,
+                                             device=device)
+    return state
 
 
 def expand_scan(marks: torch.Tensor, base_in: torch.Tensor):
@@ -103,10 +105,10 @@ def expand_scan(marks: torch.Tensor, base_in: torch.Tensor):
         return expand_scan_plain(marks, base_in)
     ext = cuda_ext.load()
     k = marks.shape[0]
-    state, epoch = _lookback_state("expand_scan", device,
-                                   ext.expand_scan_state_words(k))
+    state = _lookback_state("expand_scan", device,
+                            ext.expand_scan_state_words(k))
     outs = [torch.empty_like(marks) for _ in range(3)]
-    ext.expand_scan(marks, base_in, state, epoch, *outs)
+    ext.expand_scan(marks, base_in, state, *outs)
     expand_scan.launches += 1
     return tuple(outs)
 
@@ -178,9 +180,9 @@ def multi_cumsum(x: torch.Tensor) -> torch.Tensor:
     if x.numel():
         ext = cuda_ext.load()
         n, k = x.shape
-        state, epoch = _lookback_state(
-            "multi_cumsum", x.device, ext.multi_cumsum_state_words(n, k))
-        ext.multi_cumsum(x, state, epoch, out)
+        state = _lookback_state("multi_cumsum", x.device,
+                                ext.multi_cumsum_state_words(n, k))
+        ext.multi_cumsum(x, state, out)
         multi_cumsum.launches += 1
     return out
 
@@ -204,10 +206,9 @@ def multi_cummax(x: torch.Tensor) -> torch.Tensor:
     if x.numel():
         ext = cuda_ext.load()
         n, k = x.shape
-        state, epoch = _lookback_state(
-            "multi_cummax", x.device, ext.multi_cummax_state_words(n, k),
-            ext.multi_cummax_epoch_limit())
-        ext.multi_cummax(x, state, epoch, out)
+        state = _lookback_state("multi_cummax", x.device,
+                                ext.multi_cummax_state_words(n, k))
+        ext.multi_cummax(x, state, out)
         multi_cummax.launches += 1
     return out
 

@@ -8,10 +8,11 @@ Usage:
 
 Renders on the GPU through ``raster.rasterize.render_frame`` (bf16 feature
 stream, 128x32 tiles, background composited in the kernel, the reply's
-RGB bytes made on the device), duplicate budget ``--dup_budget`` or 8 x
-cap_max; the bytes reach the host through a page-locked buffer. ``serve``
-and ``make_render_fn`` take a ``device``; on the CPU they run the
-kernels' plain PyTorch versions.
+RGB bytes made on the device), replayed as one CUDA graph a frame
+(``FrameGraph``), duplicate budget ``--dup_budget`` or 8 x cap_max; the
+bytes reach the host through a page-locked buffer. ``serve`` and
+``make_render_fn`` take a ``device``; on the CPU they run the kernels'
+plain PyTorch versions.
 """
 
 from __future__ import annotations
@@ -27,7 +28,7 @@ from gsplat_tpu_torch import get_device
 from gsplat_tpu_torch.core.camera import CameraParams
 from gsplat_tpu_torch.model import gaussians
 from gsplat_tpu_torch.model.gaussians import GaussianState
-from gsplat_tpu_torch.raster.rasterize import render_frame
+from gsplat_tpu_torch.raster.rasterize import FrameGraph
 from gsplat_tpu_torch.utils.profiling import span
 from gsplat_tpu_torch.viewer import network_gui
 
@@ -43,21 +44,21 @@ def make_render_fn(state: GaussianState, k_dup: int, width: int,
                    height: int, device: str | torch.device = "cuda"):
     """The server's render for one resolution: camera, scaling modifier ->
     the frame the viewer receives, uint8 [H, W, 3] on ``device``
-    (``render_frame``)."""
+    (``render_frame`` through ``FrameGraph``: the state's own tensors are
+    the graph's rows)."""
     device = get_device(device)
     bg = torch.zeros(3, dtype=torch.float32, device=device)
     rows = (state.xyz, state.get_scaling(), state.get_rotation(),
-            state.get_opacity()[:, 0], state.get_features())
-    alive = state.alive_mask
+            state.get_opacity()[:, 0], state.get_features(),
+            state.alive_mask)
+    frames = FrameGraph(lambda: rows, state.max_sh_degree, bg, k_dup)
 
     def render(camera: CameraParams, scaling_modifier: float = 1.0):
         if (camera.width, camera.height) != (width, height):
             raise ValueError(f"camera is {camera.width}x{camera.height}, "
                              f"this render is {width}x{height}")
         with span("serve.render"):
-            return render_frame(*rows, camera, state.max_sh_degree, bg,
-                                k_dup, alive=alive,
-                                scale_modifier=scaling_modifier)[0]
+            return frames(camera, scaling_modifier)
 
     return render
 
@@ -65,8 +66,9 @@ def make_render_fn(state: GaussianState, k_dup: int, width: int,
 def serve(gui: network_gui.NetworkGUI, state: GaussianState, k_dup: int,
           verify: str, device: str | torch.device = "cuda",
           stop: threading.Event | None = None) -> None:
-    """Answer viewer requests until ``stop`` is set (forever if None)."""
-    render_fns = {}
+    """Answer viewer requests until ``stop`` is set (forever if None).
+    Only the current resolution's render (and its graph) is kept."""
+    size = render_fn = None
     while stop is None or not stop.is_set():
         if not gui.try_connect():
             time.sleep(0.05)
@@ -77,11 +79,10 @@ def serve(gui: network_gui.NetworkGUI, state: GaussianState, k_dup: int,
                 if camera is None:
                     gui.send(None, verify)
                     continue
-                key = (camera.width, camera.height)
-                if key not in render_fns:
-                    render_fns[key] = make_render_fn(state, k_dup, *key,
-                                                     device)
-                img = render_fns[key](camera, flags["scaling_modifier"])
+                if (camera.width, camera.height) != size:
+                    size = (camera.width, camera.height)
+                    render_fn = make_render_fn(state, k_dup, *size, device)
+                img = render_fn(camera, flags["scaling_modifier"])
                 data = network_gui.image_to_bytes(img)
                 with span("serve.send"):
                     gui.send(data, verify)

@@ -154,8 +154,9 @@ def scan_label(entry):
 class Scan:
     """One build's merge_expand, multi_cumsum and multi_cummax, with the
     wrappers' signatures, on PyTorch's current stream: the two cumulative
-    scans single-pass (a look-back state buffer and an epoch a call) or
-    the two launches of earlier revisions (a scratch of block totals)."""
+    scans single-pass (a look-back state buffer, zeroed once, that holds
+    the kernel's epoch) or the two launches of earlier revisions (a
+    scratch of block totals)."""
 
     def __init__(self, so):
         P, LL, I = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
@@ -168,8 +169,8 @@ class Scan:
         if self.single:
             self.words = lib.gsplat_multi_cumsum_state_words
             self.words.argtypes, self.words.restype = [I, LL], LL
-            self.cumsum.argtypes = [P, I, LL, P, ctypes.c_ulonglong, P, P]
-            self.state, self.epoch = None, 0
+            self.cumsum.argtypes = [P, I, LL, P, P, P]
+            self.state = None
         else:
             self.blocks = lib.gsplat_cumsum_blocks
             self.blocks.argtypes, self.blocks.restype = [LL], I
@@ -180,8 +181,8 @@ class Scan:
         if self.max_single:
             self.max_words = lib.gsplat_multi_cummax_state_words
             self.max_words.argtypes, self.max_words.restype = [I, LL], LL
-            self.cummax.argtypes = [P, I, LL, P, ctypes.c_ulonglong, P, P]
-            self.max_state, self.max_epoch = None, 0
+            self.cummax.argtypes = [P, I, LL, P, P, P]
+            self.max_state = None
         else:
             self.max_blocks = lib.gsplat_cummax_blocks
             self.max_blocks.argtypes, self.max_blocks.restype = [LL], I
@@ -215,10 +216,8 @@ class Scan:
             if self.state is None or self.state.numel() < words:
                 self.state = torch.zeros(words, dtype=torch.int64,
                                          device=x.device)
-                self.epoch = 0
-            self.epoch += 1
             err = self.cumsum(x.data_ptr(), n, k, self.state.data_ptr(),
-                              self.epoch, out.data_ptr(), self._stream())
+                              out.data_ptr(), self._stream())
         else:
             totals = torch.empty(n * self.blocks(k), dtype=torch.float32,
                                  device=x.device)
@@ -238,10 +237,8 @@ class Scan:
             if self.max_state is None or self.max_state.numel() < words:
                 self.max_state = torch.zeros(words, dtype=torch.int64,
                                              device=x.device)
-                self.max_epoch = 0
-            self.max_epoch += 1
             err = self.cummax(x.data_ptr(), n, k, self.max_state.data_ptr(),
-                              self.max_epoch, out.data_ptr(), self._stream())
+                              out.data_ptr(), self._stream())
         else:
             totals = torch.empty(n * self.max_blocks(k), dtype=torch.int32,
                                  device=x.device)

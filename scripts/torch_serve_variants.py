@@ -113,8 +113,9 @@ class Render:
 
 class Expand:
     """gsplat_expand_scan of one build: the single-pass kernel (a look-back
-    state buffer and an epoch a call) or the two-launch one of earlier
-    revisions (a scratch of per-tile aggregates)."""
+    state buffer, zeroed once, that holds the kernel's epoch) or the
+    two-launch one of earlier revisions (a scratch of per-tile
+    aggregates)."""
 
     def __init__(self, so):
         lib = ctypes.CDLL(so)
@@ -124,8 +125,8 @@ class Expand:
         if self.single:
             self.words = lib.gsplat_expand_scan_state_words
             self.words.argtypes, self.words.restype = [LL], LL
-            self.fn.argtypes = [P, P, LL, P, ctypes.c_ulonglong, P, P, P, P]
-            self.state, self.epoch = None, 0
+            self.fn.argtypes = [P, P, LL, P, P, P, P, P]
+            self.state = None
         else:
             self.tiles = lib.gsplat_expand_scan_tiles
             self.tiles.argtypes, self.tiles.restype = [LL], I
@@ -142,10 +143,8 @@ class Expand:
             if self.state is None or self.state.numel() < words:
                 self.state = torch.zeros(words, dtype=torch.int64,
                                          device=marks.device)
-                self.epoch = 0
-            self.epoch += 1
             err = self.fn(marks.data_ptr(), base_in.data_ptr(), k,
-                          self.state.data_ptr(), self.epoch, *ptrs, stream())
+                          self.state.data_ptr(), *ptrs, stream())
         else:
             agg = torch.empty(3 * self.tiles(k), dtype=torch.int32,
                               device=marks.device)

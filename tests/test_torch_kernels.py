@@ -8,7 +8,9 @@ PyTorch is installed (the GPU host):
   scans, float32 tolerance for the render), and the served frame's encode
   against numpy's float32 encode (bit for bit);
 - ``gpu`` tests hold each CUDA kernel against its plain version on the same
-  inputs: the scans and the encode bit-equal, images within two bf16 ULPs.
+  inputs: the scans and the encode bit-equal, images within two bf16 ULPs;
+  the scans and the served frame replayed as CUDA graphs against eager
+  calls, bit for bit.
   They skip on a host without an NVIDIA GPU. Run them there with
   ``python -m pytest --noconftest -m gpu tests/test_torch_kernels.py``
   (``--noconftest``: tests/conftest.py configures JAX).
@@ -1027,7 +1029,9 @@ def test_expand_scan_cuda_matches_plain(cuda, kind, k):
 def test_expand_scan_cuda_stays_in_its_state_buffer(cuda, k):
     """The kernel writes no further than expand_scan_state_words(k) words
     of the look-back state (sentinel words after them stay), leaves its
-    ticket counter at 0 for the next call, and gives the plain outputs."""
+    ticket counter at 0 and the call's epoch (one more a call) beside it,
+    in the header's high 32 bits, for the next call, and gives the plain
+    outputs."""
     ext = cuda_ext.load()
     marks, base_in = expand_kind_case("dense", k, seed=1)
     m, b = torch.from_numpy(marks), torch.from_numpy(base_in)
@@ -1037,10 +1041,10 @@ def test_expand_scan_cuda_stays_in_its_state_buffer(cuda, k):
     state[:words] = 0
     outs = [torch.empty(k, dtype=torch.int32, device=cuda) for _ in range(3)]
     for epoch in (1, 2):
-        ext.expand_scan(m.to(cuda), b.to(cuda), state, epoch, *outs)
+        ext.expand_scan(m.to(cuda), b.to(cuda), state, *outs)
         torch.cuda.synchronize()
         assert bool((state[words:] == -7).all())
-        assert int(state[0]) == 0
+        assert int(state[0]) == epoch << 32
         for g, w in zip(outs, want):
             assert torch.equal(g.cpu(), w)
 
@@ -1275,19 +1279,141 @@ def test_multi_cummax_cuda_launches_are_bit_equal(cuda):
 
 @pytest.mark.gpu
 def test_multi_cummax_cuda_restarts_when_epochs_run_out(cuda):
-    """The packed status word holds a 30-bit epoch: a buffer whose epochs
-    ran out is zero-filled and its epochs start again at 1, and the
-    results stay equal to torch.cummax across the restart."""
+    """The packed status word holds a 30-bit epoch: the kernel's epoch
+    (the high 32 bits of its state's first word, the ticket below them)
+    runs up to limit - 1 and starts again at 1, and the results stay equal
+    to torch.cummax across the restart."""
     x = torch.from_numpy(cummax_case(2, 5 * 16384 + 9, seed=9))
     want = tscan.multi_cummax_plain(x)
     xc = x.to(cuda)
     assert torch.equal(tscan.multi_cummax(xc).cpu(), want)
     key = next(key for key in tscan._LOOKBACK if key[0] == "multi_cummax")
+    state = tscan._LOOKBACK[key]
     limit = cuda_ext.load().multi_cummax_epoch_limit()
-    tscan._LOOKBACK[key][1] = limit - 2
-    assert torch.equal(tscan.multi_cummax(xc).cpu(), want)  # epoch limit-1
-    assert torch.equal(tscan.multi_cummax(xc).cpu(), want)  # restarted
-    assert tscan._LOOKBACK[key][1] == 1
+    state[0] = (limit - 3) << 32
+    for epoch_after in (limit - 2, 0, 1):  # epochs limit-2, limit-1, 1
+        assert torch.equal(tscan.multi_cummax(xc).cpu(), want)
+        assert int(state[0]) == epoch_after << 32
+
+
+def scan_inputs(kernel, gen, device):
+    """New inputs of ``kernel`` drawn on the card: expand_scan's sparse
+    marks and base_in over 2M slots (489 tiles), 3 rows of 2^20 + 5
+    floats for multi_cumsum or int32s for multi_cummax (65 tiles a row)."""
+    if kernel == "expand_scan":
+        k = 2_000_003
+        hit = torch.rand(k, generator=gen, device=device) < 0.01
+        marks = torch.where(hit, torch.randint(
+            1, 1 << 20, (k,), generator=gen, device=device,
+            dtype=torch.int32), 0)
+        base_in = torch.where(hit, torch.arange(
+            k, dtype=torch.int32, device=device), 0)
+        return marks, base_in
+    shape = (3, (1 << 20) + 5)
+    if kernel == "multi_cumsum":
+        return (torch.randn(shape, generator=gen, device=device) + 0.5,)
+    return (torch.randint(-2**31, 2**31 - 1, shape, generator=gen,
+                          device=device, dtype=torch.int32),)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("kernel", ["expand_scan", "multi_cumsum",
+                                    "multi_cummax"])
+def test_scan_replayed_in_a_cuda_graph_matches_plain(cuda, kernel):
+    """The scan captured in a CUDA graph and replayed 50 times, new inputs
+    copied into the captured ones before each replay and an eager call of
+    the same kernel on them between replays: each replay's output is
+    bit-equal to the plain version (multi_cumsum: to the eager launch,
+    which is within 2e-3 + 1e-5 |x| of a float64 cumsum). The kernel keeps
+    its look-back epoch on the device, so each replay tags its status
+    words anew; an epoch passed from the host is captured once, and a
+    replay then takes the last replay's words for published."""
+    run = getattr(tscan, kernel)
+    gen = torch.Generator(device=cuda)
+    gen.manual_seed(3)
+    static = scan_inputs(kernel, gen, cuda)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        run(*static)                 # the graph's look-back buffer
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph, stream=side):
+        out = run(*static)
+    for _ in range(50):
+        new = scan_inputs(kernel, gen, cuda)
+        for dst, src in zip(static, new):
+            dst.copy_(src)
+        graph.replay()
+        eager = run(*new)
+        if kernel == "multi_cumsum":
+            assert torch.equal(out, eager)
+            want = torch.cumsum(new[0].double(), dim=1)
+            assert bool(((eager.double() - want).abs()
+                         <= 2e-3 + 1e-5 * want.abs()).all())
+        elif kernel == "multi_cummax":
+            want = tscan.multi_cummax_plain(new[0])
+            assert torch.equal(out, want) and torch.equal(eager, want)
+        else:
+            for o, e, w in zip(out, eager, tscan.expand_scan_plain(*new)):
+                assert torch.equal(o, w) and torch.equal(e, w)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("cap", [400, 12_000])
+def test_graphed_served_frame_equals_eager(cuda, cap):
+    """The server's render (``serve.make_render_fn``, through
+    ``FrameGraph``) over 8 orbit cameras, byte-equal to eager
+    ``render_frame``, at an expand_scan budget (cap 400: 2K >= 7P, 10 scan
+    tiles) and a merge_expand one (cap 12,000), then camera 0 again at
+    scale modifier 0.8: each returned frame unchanged by the later calls;
+    one capture and a replay a later frame, the new scale modifier
+    included (counters, under a profiler session); in the profiler's CUDA
+    trace, the owner expansion's, the render's and the encode's kernels
+    each running 10 times (the first frame's eager warm-up and replay,
+    then 8 replays), the other owner expansion's never."""
+    import bench_torch
+    from torch.profiler import ProfilerActivity
+    from gsplat_tpu_torch.utils import profiling
+    from gsplat_tpu_torch.viewer import serve
+
+    w, h, k_dup = 256, 64, 40_000
+    state, _ = torch_scene(width=w, height=h, cap=cap, device=cuda)
+    cams = bench_torch.orbit_cameras(8, w, h, cuda)
+    rows = (state.xyz, state.get_scaling(), state.get_rotation(),
+            state.get_opacity()[:, 0], state.get_features())
+    bg = torch.zeros(3, device=cuda)
+    calls = [(cam, 1.0) for cam in cams] + [(cams[0], 0.8)]
+    want = [trasterize.render_frame(*rows, cam, 1, bg, k_dup,
+                                    alive=state.alive_mask,
+                                    scale_modifier=scale)[0]
+            for cam, scale in calls]
+    assert float(torch.stack(want).float().mean()) > 2
+    assert not torch.equal(want[0], want[-1])
+    expand = 2 * k_dup >= 7 * cap
+    render = serve.make_render_fn(state, k_dup, w, h, cuda)
+    torch.cuda.synchronize()
+    profiling.reset()
+    try:
+        with torch.profiler.profile(activities=[
+                ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            got = [render(cam, scale) for cam, scale in calls]
+            torch.cuda.synchronize()
+        counters = profiling.counters()
+    finally:
+        profiling.reset()
+    ran = {name: sum(e.count for e in prof.key_averages()
+                     if str(e.device_type).endswith("CUDA")
+                     and name in e.key)
+           for name in ("expand_scan_kernel", "merge_expand_kernel",
+                        "render_kernel", "encode_rgb8_kernel")}
+    assert ran == {"expand_scan_kernel": 10 if expand else 0,
+                   "merge_expand_kernel": 0 if expand else 10,
+                   "render_kernel": 10, "encode_rgb8_kernel": 10}
+    assert counters == {"raster.graph_capture": 1,
+                        "raster.graph_replay": 8}
+    for g, e in zip(got, want):
+        assert torch.equal(g, e)
 
 
 def zero_row_probs(rows=50_000, alive=49_500, seed=0):

@@ -159,6 +159,32 @@ def test_sibr_request_over_loopback():
     assert replies[2] == (b"", "model_dir")
 
 
+def test_served_frame_follows_the_scale_modifier():
+    """The server's render takes SIBR's scaling slider as a staged value:
+    frames at modifiers 1.0, 0.6, 1.0, 1.3 each equal ``render_frame`` at
+    that modifier, the two frames at 1.0 equal, and no frame equals the
+    one before it."""
+    from gsplat_tpu_torch.raster.rasterize import render_frame
+
+    par = make_params(p=300, cap=400, deg=1, seed=6)
+    state = tgauss.state_from_numpy(par, 300, 1, "cpu")
+    k_dup = 8 * state.capacity
+    w, h = 160, 64
+    cam = tcamera.make_camera(np.eye(3), np.array([0.1, 0.0, 0.0]), 0.9,
+                              0.7, w, h, device="cpu")
+    rows = (state.xyz, state.get_scaling(), state.get_rotation(),
+            state.get_opacity()[:, 0], state.get_features())
+    render = serve.make_render_fn(state, k_dup, w, h, "cpu")
+    got = []
+    for scale in (1.0, 0.6, 1.0, 1.3):
+        got.append(render(cam, scale))
+        want = render_frame(*rows, cam, 1, torch.zeros(3), k_dup,
+                            alive=state.alive_mask, scale_modifier=scale)[0]
+        assert torch.equal(got[-1], want), scale
+    assert torch.equal(got[0], got[2])
+    assert all(not torch.equal(a, b) for a, b in zip(got, got[1:]))
+
+
 def test_entry_points_refuse_missing_cuda(tmp_path):
     if torch.cuda.is_available():
         pytest.skip("a CUDA device is present")

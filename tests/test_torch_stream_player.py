@@ -11,6 +11,11 @@ by its own writer of the record format, loaded by ``load_stream_state``.
 - An end taken as inclusive (one frame too many) fails the comparison.
 - The CLI's default budget follows the largest slice, not the stream.
 - One played frame's spans and counters under a CPU profiler session.
+- The player's slice staged into rows as wide as the widest slice, the
+  rest dead, plays the bytes of the unpadded slice, frame by frame; on
+  the card (``gpu``), the replayed graph plays the eager frames' bytes.
+  Run the ``gpu`` test there with ``python -m pytest --noconftest -m gpu
+  tests/test_torch_stream_player.py``.
 """
 
 import json
@@ -70,11 +75,11 @@ def matrices(i):
     return inputs.orbit_matrices(0.3 + 0.4 * i, W, H, 6.0, [0, 0, 0], 0.9)
 
 
-def camera(i):
+def camera(i, device="cpu"):
     m = matrices(i)
     return camera_from_matrices(m["view"], m["full_proj"], m["cam_pos"],
                                 m["tan_fovx"], m["tan_fovy"], W, H,
-                                device="cpu")
+                                device=device)
 
 
 def play(data, frames):
@@ -192,7 +197,7 @@ def test_played_frame_spans_and_counters(played):
     under = sorted((s for s in spans if s is not root[0]),
                    key=lambda s: s.start_ns)
     assert [s.name for s in under] == [
-        "stream.select", "raster.preprocess", "raster.binning",
+        "stream.select", "stream.stage", "raster.preprocess", "raster.binning",
         "raster.gather", "raster.render", "raster.assemble",
         "raster.encode"]
     assert all(s.id == root[0].id and s.parent == "stream.render"
@@ -200,3 +205,46 @@ def test_played_frame_spans_and_counters(played):
     assert counters == {"stream.slice_rows": hi - lo,
                         "stream.live_rows": live}
     assert hi - lo == live == CFG["cap_max"]
+
+
+def test_padded_slice_plays_the_unpadded_bytes(played):
+    """The player stages each frame's slice into the first rows of buffers
+    as wide as the widest slice, the rest dead (start = inf); frame by
+    frame its bytes equal ``render_stream_frame``'s of the slice alone.
+    Past the video's 12 frames rows end and none start, so frames 12-14
+    have narrower slices (1,500, 1,000, 500 rows) and a wider frame's rows
+    stay behind in the buffers; frame 0 is played again after them."""
+    _, data = played
+    widths = data["slice_hi"] - data["slice_lo"]
+    wide = render_stream.widest_slice(data)
+    assert widths.min() < wide and widths.max() == wide
+    render = render_stream.make_stream_render_fn(data, 1 << 15, W, H, "cpu")
+    bg = torch.zeros(3)
+    for f in [*range(len(widths)), 0]:
+        want = render_stream.render_stream_frame(data, camera(f), float(f),
+                                                 bg, 1 << 15)
+        assert torch.equal(render(camera(f), float(f)), want), f
+
+
+@pytest.mark.gpu
+def test_graphed_played_frames_equal_eager(played):
+    """The player on the card over the stream's 15 frames (the video's 12
+    and three narrower ones after it), its slice moving each frame: each
+    replayed frame byte-equal to eager ``render_stream_frame`` of the
+    slice alone, and unchanged by the later calls."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: the CUDA kernels have no CPU mode")
+    data = {k: v.cuda() if torch.is_tensor(v) else v
+            for k, v in played[1].items()}
+    bg = torch.zeros(3, device="cuda")
+    frames = range(len(data["slice_lo"]))
+    cams = [camera(f, "cuda") for f in frames]
+    want = [render_stream.render_stream_frame(data, cams[f], float(f), bg,
+                                              1 << 15) for f in frames]
+    render = render_stream.make_stream_render_fn(data, 1 << 15, W, H,
+                                                 "cuda")
+    got = [render(cams[f], float(f)) for f in frames]
+    torch.cuda.synchronize()
+    assert len(set(data["slice_lo"].tolist())) == len(frames)
+    for f in frames:
+        assert torch.equal(got[f], want[f]), f
