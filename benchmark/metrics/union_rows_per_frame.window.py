@@ -1,0 +1,13 @@
+"""Union rows a window frame hands to ``render_frame`` and moves by their
+rigid motion, live or not: the program's ``swin.union_rows`` counter over
+its ``swin.render`` spans in the traced stretch. None where the program
+records no such counter."""
+
+from gsplat_tpu_torch.utils import profiling
+
+
+def read(ctx):
+    spans = getattr(profiling, "spans", list)()
+    frames = sum(s[0] == "swin.render" for s in spans)
+    n = getattr(profiling, "counters", dict)().get("swin.union_rows")
+    return n / frames if frames and n else None

@@ -30,6 +30,7 @@ from gsplat_tpu_torch.core.covariance import covariance_6
 from gsplat_tpu_torch.core.quaternion import normalize, rigid_deform
 from gsplat_tpu_torch.model import gaussians, mcmc, optim
 from gsplat_tpu_torch.model.gaussians import GaussianState
+from gsplat_tpu_torch.utils import checkpoint as ckpt_lib
 
 RIGID_KEYS = ("rigid_v", "rigid_rotvec", "rigid_rotcen")
 # the matured ring's leaves, each the copy of an immature leaf
@@ -204,6 +205,103 @@ def union_params_at(state: SwinState, frame: float) -> dict:
                cat([state.m_features_dc, state.m_features_rest], dim=1)])
     return dict(means3d=xyz_d, scales=scaling, quats=normalize(rot_d),
                 opacities=opacity, shs=shs, alive=active)
+
+
+class WindowUnion:
+    """The union of a ``SwinState`` in a forward-only form for drawing its
+    window's frames: ``union_params_at``'s values with the columns that
+    no frame changes built once.
+
+    At construction: the union's raw positions and rotations, rigid
+    parameters, ``start`` / ``end``, the valid mask, the activated scales
+    (exp), opacities (sigmoid) and SH; on the host, the sorted starts and
+    ends of the rows that can live (valid, start < end), so ``live_rows``
+    counts the rows live at a frame without reading the device. Each
+    frame (``rows``): the age, the rigid motion (screw with ``deform``,
+    none without), the unit quaternion and the live mask."""
+
+    def __init__(self, state: SwinState):
+        im = state.im
+        cat = torch.cat
+        self.deform = state.deform
+        self.sh_degree = im.max_sh_degree
+        self.xyz = cat([im.xyz, state.m_xyz])
+        self.rotation = cat([im.rotation, state.m_rotation])
+        self.rigid = tuple(cat([getattr(state, k), getattr(state, "m_" + k)])
+                           for k in RIGID_KEYS)
+        self.start = cat([state.frame_start, state.m_frame_start])
+        self.end = cat([state.frame_end, state.m_frame_end])
+        self.valid = cat([im.alive_mask, state.matured_valid()])
+        self.scales = torch.exp(cat([im.scaling, state.m_scaling]))
+        self.opacities = torch.sigmoid(cat([im.opacity,
+                                            state.m_opacity])[:, 0])
+        self.shs = cat([cat([im.features_dc, im.features_rest], dim=1),
+                        cat([state.m_features_dc, state.m_features_rest],
+                            dim=1)])
+        start = self.start.cpu().numpy()
+        end = self.end.cpu().numpy()
+        can = self.valid.cpu().numpy() & (start < end)
+        self._starts = np.sort(start[can])
+        self._ends = np.sort(end[can])
+
+    @property
+    def n_rows(self) -> int:
+        return self.xyz.shape[0]
+
+    def rows(self, frame):
+        """(means3d, scales, quats, opacities, shs, alive) at ``frame``, a
+        float or a 0-d float32 tensor on the union's device: the values
+        of ``union_params_at`` (``render_frame``'s row arguments)."""
+        age = frame - self.start
+        mode = "screw" if self.deform else "skip"
+        xyz, rot = rigid_deform(self.xyz, self.rotation, *self.rigid, age,
+                                mode=mode)
+        alive = self.valid & (self.start <= frame) & (self.end > frame)
+        return xyz, self.scales, normalize(rot), self.opacities, self.shs, \
+            alive
+
+    def live_rows(self, frame: float) -> int:
+        """How many rows are live at ``frame`` (valid, start <= frame <
+        end), compared in float32 as on the device; host only."""
+        f = np.float32(frame)
+        return int(np.searchsorted(self._starts, f, side="right")
+                   - np.searchsorted(self._ends, f, side="right"))
+
+
+def load_window(path: str, device: str | torch.device = "cuda"):
+    """(SwinState, window) from the trainer's checkpoint
+    ``chkpnt_<frame_start>_<it>.npz`` (``utils/checkpoint.save_pytree`` of
+    {"state", "adam"}), without a scene: the state's leaves on ``device``,
+    Adam's left unread. The static fields come from the file: the SH
+    degree from ``features_rest``'s width, ``max_lifespan`` from the
+    window, ``deform`` (the trainer's ``--deform``) from the meta.
+    ``window`` is the trainer's window record (``frame_start``,
+    ``frame_end``, ``max_frame``, ...)."""
+    device = get_device(device)
+
+    def empty():
+        return torch.empty(0, device=device)
+
+    im = GaussianState(**{f: empty() for f in ckpt_lib.STATE_LEAVES},
+                       n_alive=0, max_sh_degree=0)
+    fields = [f.name for f in dataclasses.fields(SwinState)
+              if f.name not in ("im", "m_count", "max_lifespan", "deform")]
+    template = SwinState(im=im, **{f: empty() for f in fields}, m_count=0,
+                         max_lifespan=0, deform=False)
+    tree, meta = ckpt_lib.load_pytree(path, {"state": template})
+    if "deform" not in meta:
+        raise ValueError(f"{path}: the checkpoint does not record whether "
+                         "it was trained with --deform")
+    state, window = tree["state"], meta["swin"]
+    k = state.im.features_rest.shape[1] + 1
+    sh = int(round(k ** 0.5)) - 1
+    if (sh + 1) ** 2 != k:
+        raise ValueError(f"{path}: features_rest holds {k - 1} bands, not "
+                         f"(sh + 1)^2 - 1 for any SH degree")
+    return dataclasses.replace(
+        state, im=dataclasses.replace(state.im, max_sh_degree=sh),
+        max_lifespan=int(window["frame_end"] - window["frame_start"]),
+        deform=bool(meta["deform"])), window
 
 
 def active_immature_mask(state: SwinState, frame: float) -> torch.Tensor:

@@ -254,6 +254,7 @@ def train_slide_window(state, adam, scene: DynamicScene,
                                 f"chkpnt_{swin_mgr.frame_start}_{it}.npz")
             ckpt_lib.save_pytree(path, {"state": state, "adam": adam},
                                  meta={"iteration": it,
+                                       "deform": state.deform,
                                        "swin": swin_mgr.state_dump()})
             print(f"saved checkpoint {path}")
     return state, adam
